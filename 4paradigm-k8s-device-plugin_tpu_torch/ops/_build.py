@@ -1,10 +1,10 @@
 """Builds the port's native libraries from the repo's sources at first use.
 
-Two shared libraries, both with a plain C interface loaded through
-ctypes:
+Shared libraries with a plain C interface, loaded through ctypes:
 
-- ``kernels``: every CUDA source under ``ops/csrc/``, compiled by ``nvcc``
-  for Hopper (``sm_90a``).
+- one per CUDA source ``ops/csrc/<name>.cu``, named ``<name>`` and
+  compiled by ``nvcc`` for Hopper (``sm_90a``), with every ``.cuh``
+  under ``ops/csrc/`` among its inputs;
 - ``vtpucore``: the shared accounting region, compiled by ``g++`` from the
   unchanged ``native/vtpucore/vtpu_core.cc`` with the recipe of
   ``native/Makefile``.  The region is the cross-process contract that
@@ -19,6 +19,7 @@ failed build raises; nothing is prebuilt or committed.
 
 ``build_all()`` starts one compiler per library, all at once, and waits
 for them: a cold start costs the slowest build, not the sum.
+``KERNELS`` names the CUDA libraries.
 """
 
 from __future__ import annotations
@@ -50,18 +51,22 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _cuda_sources() -> List[str]:
+KERNELS = tuple(sorted(f[:-3] for f in os.listdir(CSRC)
+                     if f.endswith(".cu")))
+
+
+def _headers() -> List[str]:
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                  if f.endswith((".cu", ".cuh")))
+                  if f.endswith(".cuh"))
 
 
 def _recipe(name: str, out: str) -> List[str]:
     """The compile command for one library, writing to ``out``."""
-    if name == "kernels":
+    if name in KERNELS:
         return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
                 "-shared", "-Xcompiler", "-fPIC", "-o", out,
-                *[s for s in _cuda_sources() if s.endswith(".cu")]]
+                os.path.join(CSRC, name + ".cu")]
     if name == "vtpucore":
         return ["g++", "-O2", "-fPIC", "-std=c++17", "-shared", "-pthread",
                 "-I" + VTPUCORE_SRC, "-o", out,
@@ -70,8 +75,8 @@ def _recipe(name: str, out: str) -> List[str]:
 
 
 def _inputs(name: str) -> List[str]:
-    if name == "kernels":
-        return _cuda_sources()
+    if name in KERNELS:
+        return [os.path.join(CSRC, name + ".cu"), *_headers()]
     return [os.path.join(VTPUCORE_SRC, f) for f in ("vtpu_core.cc",
                                                     "vtpu_core.h")]
 
@@ -113,7 +118,7 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, target)
 
 
-def build_all(names=("kernels", "vtpucore")) -> Dict[str, str]:
+def build_all(names=(*KERNELS, "vtpucore")) -> Dict[str, str]:
     """Build every library in ``names`` concurrently; returns each
     library's path.  Raises if any build failed, after every compiler
     it started has ended."""
@@ -135,8 +140,8 @@ def build_all(names=("kernels", "vtpucore")) -> Dict[str, str]:
 
 def build_log(name: str) -> str:
     """The compiler's output from the build that made the current
-    library ``name`` (for the kernels, nvcc's ``-Xptxas -v`` report of
-    registers, shared memory and spills); empty when there is none."""
+    library ``name`` (for a kernel library, nvcc's ``-Xptxas -v`` report
+    of registers, shared memory and spills); empty when there is none."""
     path = _target(name) + ".log"
     if not os.path.exists(path):
         return ""

@@ -7,10 +7,19 @@ already repeated per head, and ``attention_bshd`` on the model's
 [batch, seq, heads, head_dim].
 
 Dispatch follows the tensors: CPU tensors go to ``flash_attention_ref``,
-CUDA tensors to the kernel in ``csrc/flash_attention.cu``.  A CUDA call
-the kernel cannot take (dtype, head_dim, layout) raises, as does a failed
-build or launch; nothing falls back to the plain version.  Every launch
-adds one to ``flash_attention.launches``.
+CUDA tensors to one of two hand-written kernels, chosen by
+``kernel_route`` from the dtype and head_dim alone:
+
+- ``"sm90"``, ``csrc/flash_attention_sm90.cu``: bf16 at head_dim 64 and
+  128 (the serving path), TMA-fed wgmma with the softmax and the output
+  in registers;
+- ``"wmma"``, ``csrc/flash_attention.cu``: f32, and bf16 at head_dim 16
+  and 32.
+
+A CUDA call no kernel can take (dtype, head_dim, layout) raises, as does
+a failed build or launch; nothing falls back to the plain version or to
+the other kernel.  Every launch adds one to ``flash_attention.launches``
+and one to its route's entry in ``flash_attention.route_launches``.
 """
 
 from __future__ import annotations
@@ -21,9 +30,14 @@ import torch
 
 from . import _build
 
-# Kernel instances compiled into csrc/flash_attention.cu.
+# Head dims of the kernel instances: csrc/flash_attention.cu (both
+# dtypes) and csrc/flash_attention_sm90.cu (bf16).
 HEAD_DIMS = (16, 32, 64, 128)
+SM90_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# route -> (library built from csrc/<library>.cu, its C entry point)
+ROUTES = {"sm90": ("flash_attention_sm90", "vtpu_flash_attention_fwd_sm90"),
+          "wmma": ("flash_attention", "vtpu_flash_attention_fwd")}
 
 _NEG = torch.finfo(torch.float32).min
 
@@ -42,9 +56,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs.float(), v.float()).to(q.dtype)
 
 
-def _kernel():
-    lib = _build.library("kernels")
-    fn = lib.vtpu_flash_attention_fwd
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that a CUDA call of this dtype and head_dim takes."""
+    if dtype == torch.bfloat16 and head_dim in SM90_HEAD_DIMS:
+        return "sm90"
+    return "wmma"
+
+
+def _kernel(route: str):
+    lib, symbol = ROUTES[route]
+    fn = getattr(_build.library(lib), symbol)
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, vp]
@@ -52,8 +73,7 @@ def _kernel():
     return fn
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for t in (q, k, v):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError("flash_attention: q, k, v must lie on one CUDA "
@@ -68,22 +88,33 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash_attention: the kernel takes contiguous, "
                              "16-byte aligned tensors")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {q.shape[-1]} not in "
+                         f"{HEAD_DIMS}")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, route: str | None = None) -> torch.Tensor:
+    """Launch the kernel of ``kernel_route`` on CUDA tensors, or the one
+    ``route`` names (chip_smoke.py times the wmma kernel at the serving
+    shapes so)."""
+    _check(q, k, v)
     bh, s, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    route = route or kernel_route(q.dtype, d)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _kernel()
+    fn = _kernel(route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 bh, s, d, _DTYPE_CODES[q.dtype], int(causal), d ** -0.5,
                 stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: "
+                           f"CUDA error {rc}")
     flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
     return out
 
 
@@ -99,6 +130,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -8,15 +8,20 @@ then runs five phases, each of which asserts; any failure exits non-zero
 and prints no result line.
 
 1. Device: the card's name and power limit, the versions, the build.
-2. Kernel vs plain: the CUDA attention kernel against its plain PyTorch
-   version on the card, at the shapes of the JAX package's kernel tests,
-   ragged and small head_dim cases, and the serving shapes; times the
-   kernel, the plain version and PyTorch's scaled_dot_product_attention
-   (the yardstick only: the port never calls it) beside the bound.
+   Fails if ptxas reports a spill in the Hopper attention kernel.
+2. Kernel vs plain: the CUDA attention kernels against their plain
+   PyTorch version on the card, at the shapes of the JAX package's kernel
+   tests, ragged and small head_dim cases, and the serving shapes; each
+   call goes to the kernel ``kernel_route`` picks (sm90 for bf16 at
+   head_dim 64 and 128, wmma otherwise).  At the serving shapes it also
+   runs the wmma kernel, and times both kernels in turns beside the plain
+   version, PyTorch's scaled_dot_product_attention (the yardstick only:
+   the port never calls it) and the bound.
 3. Serving: a quota-enforced tenant serves Llama-3-8B at full width and
    depth with random weights through ``vtpu_torch.entry.serve``; the
-   attention kernel's launch count is reset just before and read just
-   after.  The flash path's logits are held against the plain path's.
+   attention kernels' launch counts are reset just before and read just
+   after, and every launch must have taken the sm90 route.  The flash
+   path's logits are held against the plain path's.
 4. Quota: a second copy of the weights is refused under the 20 GiB cap
    before anything is allocated; releasing the model empties the ledger.
 5. Two tenants: two processes at 50% compute shares serve the bench
@@ -32,6 +37,7 @@ import json
 import multiprocessing as mp
 import os
 import queue
+import re
 import statistics
 import subprocess
 import sys
@@ -44,8 +50,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
-KERNEL_SOURCE = "4paradigm-k8s-device-plugin_tpu_torch/ops/csrc/flash_attention.cu"
+# Each attention kernel (one per route of ops.flash_attention.ROUTES) is
+# built from CSRC/<library>.cu and replaces KERNEL_REPLACES.
+CSRC = "4paradigm-k8s-device-plugin_tpu_torch/ops/csrc"
 KERNEL_REPLACES = "4paradigm-k8s-device-plugin_tpu/ops/flash_attention.py:39"
+SERVE_S = 512              # the serving shape the kernels line reports
 
 # Tolerances of the kernel against its plain version.  bf16: the kernel
 # casts unnormalised probabilities to bf16 and normalises in f32 at the
@@ -96,21 +105,37 @@ def phase_device(torch):
         f"device {torch.cuda.get_device_name(0)} "
         f"capability {torch.cuda.get_device_capability(0)}")
     from vtpu_torch.ops import _build
+    from vtpu_torch.ops import flash_attention as fa
 
     t0 = time.monotonic()
     paths = _build.build_all()
     say(f"build: {time.monotonic() - t0:.1f} s for {sorted(paths)}")
-    for line in _build.build_log("kernels").splitlines():
-        if "Used" in line or "spill" in line:
-            say("  ptxas:" + line.split("ptxas info")[-1])
+    for name in _build.KERNELS:
+        spills = []
+        for line in _build.build_log(name).splitlines():
+            if "Used" in line or "spill" in line or "arning" in line:
+                say(f"  ptxas {name}:" + line.split("ptxas info")[-1])
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spills.append(int(m.group(1)) + int(m.group(2)))
+        if name == fa.ROUTES["sm90"][0]:
+            check(spills and not any(spills),
+                  f"ptxas reports spills in {name}: {spills}")
     return card
 
 
 # -- phase 2 ------------------------------------------------------------------
 
+HOLD_CYCLES = 40_000_000   # about 20 ms of an H100's clock
+
+
 def time_ms(torch, fn, reps=5, iters=20):
     """Median over ``reps`` windows of ``iters`` back-to-back calls,
-    timed with CUDA events after a warm-up."""
+    timed with CUDA events after a warm-up.  A spin kernel holds the card
+    while each window's calls are queued, so the window times the device
+    and not the host's launch rate (a 25 µs kernel launched through
+    ctypes from Python is otherwise timed at its launch rate)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -118,6 +143,7 @@ def time_ms(torch, fn, reps=5, iters=20):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOLD_CYCLES)
         start.record()
         for _ in range(iters):
             fn()
@@ -137,6 +163,13 @@ def attention_bound(bh, s, d, causal, dtype_bytes, peak_flops):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def compare(torch, got, want, tol):
+    """(max abs error, within ``tol`` abs + rel everywhere and finite)."""
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= tol + tol * want.float().abs()).all())
+    return diff.max().item(), ok and torch.isfinite(got).all().item()
+
+
 def phase_kernel(torch):
     from vtpu_torch.ops import flash_attention as fa
 
@@ -153,6 +186,11 @@ def phase_kernel(torch):
         ((2, 200, 64), bf16, True), ((3, 77, 128), bf16, False),
         ((2, 200, 16), f32, True), ((2, 130, 16), bf16, True),
         ((2, 96, 128), f32, True),
+        # the sm90 kernel: ragged tails on its 128-row tiles; head_dim 64
+        ((2, 130, 128), bf16, True), ((8, 1000, 128), bf16, True),
+        ((64, 512, 64), bf16, True), ((64, 512, 64), bf16, False),
+        # the long forward (batch 1 x 32 heads) and a longer one
+        ((32, 2048, 128), bf16, True), ((8, 4096, 128), bf16, True),
         # serving: batch 2 x 32 heads, head_dim 128
         ((64, 512, 128), bf16, True), ((64, 2048, 128), bf16, True),
     ]
@@ -160,36 +198,53 @@ def phase_kernel(torch):
     for shape, dtype, causal in cases:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
+        route = fa.kernel_route(dtype, shape[-1])
         got = fa.flash_attention(q, k, v, causal=causal)
         want = fa.flash_attention_ref(q, k, v, causal=causal)
         torch.cuda.synchronize()
         name = str(dtype).split(".")[-1]
         tol = TOL[name]
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        ok = bool((diff <= tol + tol * want.float().abs()).all())
-        say(f"kernel {shape} {name} causal={causal}: max_abs_err {err:.3g} "
-            f"(tol {tol}) {'ok' if ok else 'MISMATCH'}")
-        check(ok and torch.isfinite(got).all().item(),
-              f"kernel disagrees with plain version at {shape} {name}")
-        if shape[0] == 64:
-            bh, s, d = shape
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
-            row = {
-                "max_abs_err": err,
-                "ms": time_ms(torch, lambda: fa.flash_attention(
-                    q, k, v, causal=causal)),
-                "plain_ms": time_ms(torch, lambda: fa.flash_attention_ref(
-                    q, k, v, causal=causal), reps=3, iters=5),
-                "library_ms": time_ms(torch, lambda: sdpa(
-                    q4, k4, v4, is_causal=causal)),
-            }
-            row["bound_ms"], row["bound_by"] = attention_bound(
-                bh, s, d, causal, 2, PEAK_BF16_FLOPS)
-            say(f"  time at bh={bh} s={s} d={d}: " + json.dumps(row))
-            timed[s] = row
+        err, ok = compare(torch, got, want, tol)
+        say(f"kernel {route} {shape} {name} causal={causal}: max_abs_err "
+            f"{err:.3g} (tol {tol}) {'ok' if ok else 'MISMATCH'}")
+        check(ok, f"{route} kernel disagrees with plain version at {shape} "
+              f"{name} causal={causal}")
+        if shape[0] == 64 and shape[-1] == 128:
+            timed[shape[1]] = time_serving_shape(torch, fa, q, k, v, causal,
+                                                 err, want)
     return timed
+
+
+def time_serving_shape(torch, fa, q, k, v, causal, err, want):
+    """Per-route numbers at one serving shape.  The wmma kernel is run
+    and checked here too; the two kernels are timed in turns (sm90, wmma,
+    wmma, sm90) and each time is the mean of its two turns."""
+    bh, s, d = q.shape
+    got = fa._launch(q, k, v, causal, route="wmma")
+    torch.cuda.synchronize()
+    prev_err, ok = compare(torch, got, want, TOL["bfloat16"])
+    check(ok, f"wmma kernel disagrees with plain version at {tuple(q.shape)}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = (t.unsqueeze(0) for t in (q, k, v))
+    turns = {"sm90": [], "wmma": []}
+    for route in ("sm90", "wmma", "wmma", "sm90"):
+        turns[route].append(time_ms(torch, lambda: fa._launch(
+            q, k, v, causal, route=route)))
+    shared = {
+        "plain_ms": time_ms(torch, lambda: fa.flash_attention_ref(
+            q, k, v, causal=causal), reps=3, iters=5),
+        "library_ms": time_ms(torch, lambda: sdpa(
+            q4, k4, v4, is_causal=causal)),
+    }
+    shared["bound_ms"], shared["bound_by"] = attention_bound(
+        bh, s, d, causal, 2, PEAK_BF16_FLOPS)
+    rows = {route: {"max_abs_err": e, "ms": statistics.mean(turns[route]),
+                    **shared}
+            for route, e in (("sm90", err), ("wmma", prev_err))}
+    rows["sm90"]["prev_ms"] = rows["wmma"]["ms"]
+    say(f"  time at bh={bh} s={s} d={d} (turns {json.dumps(turns)}): "
+        + json.dumps(rows))
+    return rows
 
 
 def device_breakdown(torch, fn):
@@ -214,7 +269,7 @@ def device_breakdown(torch, fn):
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
-        if "attn_fwd_kernel" in name:
+        if "attn_fwd" in name:
             parts["attention_kernel_ms"] += ms
         elif any(w in name for w in ("gemm", "xmma", "nvjet", "cutlass")):
             parts["gemm_ms"] += ms
@@ -238,20 +293,24 @@ def phase_serve(torch, tmp):
         tmp, "serve.shr"))
     cfg = tr.TransformerConfig.llama3_8b()
     fa.flash_attention.launches = 0
+    fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
     t0 = time.monotonic()
     out = entry.serve("llama3_8b", batch=2, seq=512, steps=4, device="cuda",
                       use_flash=True, seed=0)
-    launches = fa.flash_attention.launches
+    launches = dict(fa.flash_attention.route_launches)
+    total = fa.flash_attention.launches
     wall = time.monotonic() - t0
     model, enf, ledger = out["model"], out["enforcer"], out["ledger"]
     tokens = out["tokens"]
     param_bytes = tr.state_bytes(cfg)
     say(f"serve llama3_8b b=2 s=512: 4 steps, {out['steps_per_s']:.3f} "
         f"steps/s after the first, {wall:.1f} s with init; launches "
-        f"{launches}; weights {param_bytes / 2**30:.2f} GiB; ledger "
-        + json.dumps(ledger))
-    check(launches == 4 * cfg.n_layers == out["launches"],
-          f"kernel launches {launches} != 4 steps x {cfg.n_layers} layers")
+        f"{json.dumps(launches)}; weights {param_bytes / 2**30:.2f} GiB; "
+        "ledger " + json.dumps(ledger))
+    check(total == 4 * cfg.n_layers == out["launches"],
+          f"kernel launches {total} != 4 steps x {cfg.n_layers} layers")
+    check(launches["sm90"] == total,
+          f"serving launches not all on the sm90 route: {launches}")
     check(tokens.shape == (2, 512) and int(tokens.min()) >= 0
           and int(tokens.max()) < cfg.vocab, "tokens out of range")
     check(ledger["used_bytes"] >= param_bytes,
@@ -426,9 +485,13 @@ def main():
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
-    say(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, **timed[512]}]}))
+    from vtpu_torch.ops.flash_attention import ROUTES
+    say(json.dumps({"kernels": [
+        {"name": lib, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
+         "replaces": KERNEL_REPLACES, "launches": launches[route],
+         "shape": {"bh": 64, "s": SERVE_S, "d": 128, "causal": True},
+         **timed[SERVE_S][route]}
+        for route, (lib, _symbol) in ROUTES.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
