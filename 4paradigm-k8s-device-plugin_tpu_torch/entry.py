@@ -8,7 +8,11 @@ serving loop of a quota-enforced tenant.
   ``argmax(forward(tokens), -1)``, so the steps form one dependency
   chain on the device.  When the environment sets a quota (the Allocate
   env contract, ``utils.envspec``), the weights are admitted against the
-  HBM cap tensor by tensor and every step is gated on the compute share.
+  HBM cap tensor by tensor and every step is gated on the compute share;
+  in a process started under the native interposer
+  (``shim.interposer.tenant_env``) the interposer enforces the quota
+  instead, with no call of ``serve``'s, and ``serve`` reads its ledger
+  from the region.
 
 Both run on the card unless the caller passes ``device="cpu"``; asking for
 CUDA on a machine without a card raises.
@@ -30,7 +34,7 @@ import torch
 from .models.convert import init_module, params_from_numpy
 from .models.transformer import TransformerConfig
 from .ops.flash_attention import flash_attention
-from .shim.pyshim import install_torch_enforcement
+from .shim.pyshim import install_torch_enforcement, region_ledger
 
 
 def _device(device) -> torch.device:
@@ -67,7 +71,8 @@ def serve(cfg: Union[str, TransformerConfig] = "llama3_8b", batch: int = 2,
     are drawn from ``seed``; the first block is ``prompt`` or zeros.
     Returns the final tokens, the steps per second after the first step,
     the attention kernel's launches in this run, the enforcer (None
-    without a quota) with its region ledger, and the model."""
+    without a quota, or under the interposer), the region ledger (None
+    without a quota) and the model."""
     dev = _device(device)
     cfg = dataclasses.replace(_config(cfg), use_flash=use_flash)
     enf = install_torch_enforcement()
@@ -101,7 +106,8 @@ def serve(cfg: Union[str, TransformerConfig] = "llama3_8b", batch: int = 2,
         "tokens": tokens.cpu(),
         "steps_per_s": rate,
         "launches": flash_attention.launches - launches0,
-        "ledger": enf.ledger(enf.dev_of(dev)) if enf is not None else None,
+        "ledger": (enf.ledger(enf.dev_of(dev)) if enf is not None
+                   else region_ledger(dev.index)),
         "enforcer": enf,
         "model": model,
     }

@@ -1,0 +1,1335 @@
+/* libvtpu_cuda.so — holds an unmodified CUDA process to its vGPU quota.
+ *
+ * The port's counterpart of vtpu's PJRT interposer
+ * (native/vtpu_pjrt/interposer.cc) and of the reference's LD_PRELOAD
+ * interceptor (SURVEY §2.9).  A tenant is started with
+ *
+ *     LD_PRELOAD=<this library> + the Allocate env (VTPU_DEVICE_HBM_LIMIT...)
+ *
+ * and needs no call of its own (shim/interposer.py builds the env).  The
+ * library is first in the global symbol order, so it sees every way a
+ * program reaches the driver:
+ *
+ *   dlsym                   exported here.  The CUDA runtime (shared, or
+ *                           linked statically into a kernel library) gets
+ *                           libcuda's cuGetProcAddress through dlsym on
+ *                           libcuda's handle; NVML users get theirs the
+ *                           same way.  Hooked names come back as wrappers,
+ *                           every other name is forwarded untouched.
+ *   cuGetProcAddress[_v2]   the runtime fetches every driver entry point
+ *                           through it, by base name and CUDA version
+ *                           ("cuMemAlloc" at 3020 is cuMemAlloc_v2), with
+ *                           _ptsz variants for per-thread default streams.
+ *                           The real lookup runs first; a wrapper replaces
+ *                           its answer only when the pointer IS the real
+ *                           address of a hooked function — pointers are
+ *                           compared, never names, so versions and
+ *                           variants resolve exactly as the driver says
+ *                           and unhooked entry points (cuTensorMapEncode-
+ *                           Tiled, which the sm90 kernel fetches through
+ *                           cudaGetDriverEntryPoint) come back as they
+ *                           are.
+ *   the hooked names        exported directly too, for programs linked
+ *                           against libcuda / libnvidia-ml.
+ *
+ * Enforcement, over the shared accounting region (native/vtpucore,
+ * compiled in unchanged) that vtpu's tools and the port's pyshim read:
+ *
+ *   memory   cuMemAlloc_v2, cuMemAllocPitch_v2, cuMemAllocManaged,
+ *            cuMemAllocAsync, cuMemAllocFromPoolAsync, cuMemCreate are
+ *            charged BEFORE the real allocator runs and refused with
+ *            CUDA_ERROR_OUT_OF_MEMORY past the cap (VTPU_ACTIVE_OOM_KILLER:
+ *            SIGKILL instead; VTPU_OVERSUBSCRIBE: a synchronous allocation
+ *            past the cap is made managed instead, uncharged — vtpu's host
+ *            spill).  cuMemFree_v2, cuMemFreeAsync, cuMemRelease release.
+ *            The device is the current context's (cuMemAlloc takes none).
+ *            PyTorch's caching allocator calls cudaMalloc once per
+ *            segment (cuMemCreate per chunk with expandable segments), so
+ *            charges fall at segment granularity, not per tensor.
+ *   view     cuMemGetInfo_v2 reports (cap - region used, cap) and
+ *            cuDeviceTotalMem_v2 the cap; nvmlDeviceGetMemoryInfo[_v2]
+ *            the same, which is what nvidia-smi in the container shows.
+ *   compute  cuLaunchKernel, cuLaunchKernelEx (cuBLAS's GEMMs on Hopper),
+ *            cuLaunchCooperativeKernel and cuGraphLaunch, with their _ptsz
+ *            variants, pass a gate that blocks while the region's token
+ *            bucket is in debt (VTPU_CORE_UTILIZATION_POLICY: DISABLE
+ *            never gates, FORCE always, DEFAULT while another process
+ *            shares the region; VTPU_TASK_PRIORITY 0 borrows).  The launch
+ *            path never synchronises, and calls the region only while the
+ *            bucket is in debt or a floor is set.  A watcher
+ *            thread books the process's OWN device time into the bucket
+ *            and the duty counter: the time its streams have work
+ *            pending, divided among the region's processes busy at the
+ *            same time (the card time-slices between them).  Wall time
+ *            around a synchronise would also bill a co-tenant's slices.
+ *            VTPU_MIN_EXEC_COST_US charges a floor per launch up front.
+ *
+ * A quota env with no usable region (unopenable path, incompatible
+ * layout, a value that does not parse) fails CLOSED: every hooked
+ * allocation and launch is refused, nothing runs unenforced.  With no
+ * quota env at all the library forwards everything.
+ *
+ * Not carried over from vtpu's interposer (ROADMAP Queue 1): core-split
+ * device filtering (CUDA_VISIBLE_DEVICES / NVIDIA_DEVICE_MAP come with
+ * Allocate), donation and staged residency (PJRT concepts), and
+ * preload.cc's dlopen redirect (the ld.so.preload mount comes with
+ * Allocate).  Region ordinals are the CUDA device ordinals, and NVML
+ * device i is taken as CUDA device i, as they are in a container that
+ * Allocate gave its cards.  A device past the region's last ordinal is
+ * charged to ordinal 0, as the pyshim's clamp_dev does.
+ */
+#include <ctype.h>
+#include <dlfcn.h>
+#include <errno.h>
+#include <fcntl.h>
+#include <link.h>
+#include <pthread.h>
+#include <signal.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <time.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <atomic>
+#include <chrono>
+#include <condition_variable>
+#include <new>
+#include <mutex>
+#include <string>
+#include <unordered_map>
+
+#include "cuda_abi.h"
+#include "vtpu_core.h"
+
+using namespace vtpu_abi;
+
+#define EXPORT extern "C" __attribute__((visibility("default")))
+
+extern char** environ;
+
+/* ------------------------------------------------------------------ */
+/* logging                                                            */
+/* ------------------------------------------------------------------ */
+
+static int g_log_level = 1;
+
+#define LOG(level, ...)                              \
+  do {                                               \
+    if (g_log_level >= (level)) {                    \
+      fprintf(stderr, "[vtpu_cuda] " __VA_ARGS__);   \
+      fputc('\n', stderr);                           \
+    }                                                \
+  } while (0)
+
+static uint64_t mono_ns() {
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (uint64_t)ts.tv_sec * 1000000000ull + (uint64_t)ts.tv_nsec;
+}
+
+/* ------------------------------------------------------------------ */
+/* the real entry points                                              */
+/* ------------------------------------------------------------------ */
+
+typedef void* dlsym_fn(void*, const char*);
+
+/* The real dlsym: libc's since glibc 2.34, libdl's before. */
+static dlsym_fn* real_dlsym() {
+  static std::atomic<dlsym_fn*> fn{nullptr};
+  dlsym_fn* f = fn.load(std::memory_order_acquire);
+  if (f == nullptr) {
+    f = (dlsym_fn*)dlvsym(RTLD_NEXT, "dlsym", "GLIBC_2.34");
+    if (f == nullptr) f = (dlsym_fn*)dlvsym(RTLD_NEXT, "dlsym", "GLIBC_2.2.5");
+    fn.store(f, std::memory_order_release);
+  }
+  return f;
+}
+
+enum { LIB_CUDA = 0, LIB_NVML = 1 };
+static const char* const kSoname[] = {"libcuda.so.1", "libnvidia-ml.so.1"};
+
+/* Real addresses of the unhooked functions this library calls.  Filled,
+ * like the hooks' (resolve_reals), from the already-loaded library
+ * (RTLD_NOLOAD: nothing is loaded, and no constructor runs, from inside
+ * a hook). */
+struct Real {
+  std::atomic<fn_cuCtxGetDevice*> cuCtxGetDevice{nullptr};
+  std::atomic<fn_cuCtxGetCurrent*> cuCtxGetCurrent{nullptr};
+  std::atomic<fn_cuCtxSetCurrent*> cuCtxSetCurrent{nullptr};
+  std::atomic<fn_cuStreamQuery*> cuStreamQuery{nullptr};
+  std::atomic<fn_cuMemAllocManaged*> cuMemAllocManaged{nullptr};
+};
+static Real R;
+
+/* One hooked symbol: its exported name, the wrapper that replaces it and
+ * the real function it forwards to. */
+struct Hook {
+  const char* name;
+  int lib;
+  void* wrapper;
+  std::atomic<void*> real;
+};
+
+static void* real_of(int lib, const char* name) {
+  void* h = dlopen(kSoname[lib], RTLD_LAZY | RTLD_NOLOAD);
+  if (h == nullptr) return nullptr;
+  void* p = real_dlsym()(h, name);
+  dlclose(h);
+  return p;
+}
+
+/* Declared below with the wrappers. */
+extern Hook g_hooks[];
+extern const size_t g_nhooks;
+
+/* Fill every hook's real address of `lib` (idempotent). */
+static void resolve_reals(int lib) {
+  static std::atomic<bool> done[2];
+  if (done[lib].load(std::memory_order_acquire)) return;
+  void* h = dlopen(kSoname[lib], RTLD_LAZY | RTLD_NOLOAD);
+  if (h == nullptr) return;
+  for (size_t i = 0; i < g_nhooks; i++) {
+    Hook& k = g_hooks[i];
+    if (k.lib == lib && k.real.load(std::memory_order_acquire) == nullptr)
+      k.real.store(real_dlsym()(h, k.name), std::memory_order_release);
+  }
+  if (lib == LIB_CUDA) {
+    R.cuCtxGetDevice.store(
+        (fn_cuCtxGetDevice*)real_dlsym()(h, "cuCtxGetDevice"));
+    R.cuCtxGetCurrent.store(
+        (fn_cuCtxGetCurrent*)real_dlsym()(h, "cuCtxGetCurrent"));
+    R.cuCtxSetCurrent.store(
+        (fn_cuCtxSetCurrent*)real_dlsym()(h, "cuCtxSetCurrent"));
+    R.cuStreamQuery.store((fn_cuStreamQuery*)real_dlsym()(h, "cuStreamQuery"));
+    R.cuMemAllocManaged.store(
+        (fn_cuMemAllocManaged*)real_dlsym()(h, "cuMemAllocManaged"));
+  }
+  dlclose(h);
+  done[lib].store(true, std::memory_order_release);
+}
+
+static Hook* hook_named(const char* name) {
+  for (size_t i = 0; i < g_nhooks; i++)
+    if (strcmp(g_hooks[i].name, name) == 0) return &g_hooks[i];
+  return nullptr;
+}
+
+/* The real function behind hook `k`, resolved on first use. */
+template <class F>
+static F* real(Hook& k) {
+  void* p = k.real.load(std::memory_order_acquire);
+  if (p == nullptr) {
+    resolve_reals(k.lib);
+    p = k.real.load(std::memory_order_acquire);
+  }
+  return (F*)p;
+}
+
+/* ------------------------------------------------------------------ */
+/* quota env (mirrors utils/envspec.py quota_from_env)                */
+/* ------------------------------------------------------------------ */
+
+enum { POLICY_DEFAULT = 0, POLICY_FORCE = 1, POLICY_DISABLE = 2 };
+enum { STATE_OFF = 0, STATE_ENFORCING = 1, STATE_FAILCLOSED = 2 };
+
+struct Quota {
+  bool any = false;  /* the env sets an HBM or a compute limit */
+  bool bad = false;  /* a value envspec would reject */
+  int ndev = 1;
+  uint64_t limits[VTPU_MAX_DEVICES] = {};
+  int32_t core_pct = 0;
+  int policy = POLICY_DEFAULT;
+  int priority = 1;
+  bool oversubscribe = false;
+  bool oom_killer = false;
+  uint64_t min_cost_us = 0;
+  std::string region;
+};
+
+static std::string strip(const char* s) {
+  std::string v(s ? s : "");
+  size_t a = v.find_first_not_of(" \t\n\r\f\v");
+  size_t b = v.find_last_not_of(" \t\n\r\f\v");
+  return a == std::string::npos ? "" : v.substr(a, b - a + 1);
+}
+
+/* envspec.parse_quantity:
+ * ^\s*(\d+(?:\.\d+)?)\s*([kmgtKMGT]i?|)\s*[bB]?\s*$ -> int(float * mult) */
+static bool parse_quantity(const char* s, uint64_t* out) {
+  std::string v = strip(s);
+  size_t i = 0, n = v.size();
+  size_t d0 = i;
+  while (i < n && isdigit((unsigned char)v[i])) i++;
+  if (i == d0) return false;
+  if (i < n && v[i] == '.') {
+    size_t f0 = ++i;
+    while (i < n && isdigit((unsigned char)v[i])) i++;
+    if (i == f0) return false;
+  }
+  std::string number = v.substr(d0, i - d0);
+  while (i < n && isspace((unsigned char)v[i])) i++;
+  double mult = 1;
+  if (i < n && strchr("kmgtKMGT", v[i])) {
+    char c = (char)tolower((unsigned char)v[i++]);
+    bool binary = i < n && v[i] == 'i';
+    if (binary) i++;
+    int e = c == 'k' ? 1 : c == 'm' ? 2 : c == 'g' ? 3 : 4;
+    for (int k = 0; k < e; k++) mult *= binary ? 1024.0 : 1000.0;
+  }
+  while (i < n && isspace((unsigned char)v[i])) i++;
+  if (i < n && (v[i] == 'b' || v[i] == 'B')) i++;
+  while (i < n && isspace((unsigned char)v[i])) i++;
+  if (i != n) return false;
+  *out = (uint64_t)(strtod(number.c_str(), nullptr) * mult);
+  return true;
+}
+
+/* Python's int() on a decimal string (signs, surrounding space). */
+static bool parse_int(const char* s, long* out) {
+  std::string v = strip(s);
+  if (v.empty()) return false;
+  char* end = nullptr;
+  errno = 0;
+  long x = strtol(v.c_str(), &end, 10);
+  if (errno || *end != '\0' || !isdigit((unsigned char)v.back())) return false;
+  *out = x;
+  return true;
+}
+
+static bool parse_bool(const char* s) {
+  std::string v = strip(s);
+  std::transform(v.begin(), v.end(), v.begin(), ::tolower);
+  return v == "true" || v == "1" || v == "yes" || v == "on";
+}
+
+static Quota parse_quota() {
+  Quota q;
+  static const char kHbm[] = "VTPU_DEVICE_HBM_LIMIT";
+  const size_t nh = sizeof(kHbm) - 1;
+  bool have_default = false, have[VTPU_MAX_DEVICES] = {};
+  uint64_t def = 0;
+  int max_ord = -1;
+  for (char** e = environ; e && *e; e++) {
+    const char* kv = *e;
+    const char* eq = strchr(kv, '=');
+    if (!eq || strncmp(kv, kHbm, nh) != 0) continue;
+    std::string key(kv, eq - kv);
+    uint64_t bytes = 0;
+    if (key.size() == nh) {
+      if (!parse_quantity(eq + 1, &bytes)) q.bad = true;
+      have_default = true;
+      def = bytes;
+      continue;
+    }
+    if (key[nh] != '_') continue;
+    long ord = 0;
+    if (!parse_int(key.c_str() + nh + 1, &ord) || ord >= VTPU_MAX_DEVICES ||
+        !parse_quantity(eq + 1, &bytes)) {
+      q.bad = true;
+      continue;
+    }
+    if (ord == -1) {  /* envspec keys the default as ordinal -1 */
+      have_default = true;
+      def = bytes;
+    } else if (ord >= 0) {
+      have[ord] = true;
+      q.limits[ord] = bytes;
+      if (ord > max_ord) max_ord = (int)ord;
+    }
+  }
+  q.ndev = max_ord + 1 > 1 ? max_ord + 1 : 1;
+  for (int i = 0; i < q.ndev; i++)
+    if (!have[i]) q.limits[i] = have_default ? def : 0;
+  q.any = have_default || max_ord >= 0;
+
+  long v = 0;
+  if (const char* s = getenv("VTPU_DEVICE_CORE_LIMIT")) {
+    if (parse_int(s, &v))
+      q.core_pct = (int32_t)std::max(0L, std::min(100L, v));
+    else
+      q.bad = true;
+  }
+  q.any = q.any || q.core_pct > 0;
+  std::string pol = strip(getenv("VTPU_CORE_UTILIZATION_POLICY"));
+  std::transform(pol.begin(), pol.end(), pol.begin(), ::toupper);
+  q.policy = pol == "FORCE" ? POLICY_FORCE
+             : pol == "DISABLE" ? POLICY_DISABLE : POLICY_DEFAULT;
+  if (const char* s = getenv("VTPU_TASK_PRIORITY")) {
+    if (parse_int(s, &v))
+      q.priority = (int)v;
+    else
+      q.bad = true;
+  }
+  q.oversubscribe = parse_bool(getenv("VTPU_OVERSUBSCRIBE"));
+  q.oom_killer = parse_bool(getenv("VTPU_ACTIVE_OOM_KILLER"));
+  if (const char* s = getenv("VTPU_MIN_EXEC_COST_US")) {
+    std::string c = strip(s);
+    char* end = nullptr;
+    double us = c.empty() ? 0 : strtod(c.c_str(), &end);
+    if (!c.empty() && (*end != '\0' || us < 0))
+      q.bad = true;
+    else
+      q.min_cost_us = (uint64_t)us;
+  }
+  const char* path = getenv("VTPU_DEVICE_MEMORY_SHARED_CACHE");
+  q.region = path && *path ? path : "/tmp/vtpushr.cache";
+  return q;
+}
+
+/* ------------------------------------------------------------------ */
+/* state                                                              */
+/* ------------------------------------------------------------------ */
+
+/* Mirrored by shim/interposer.py:Stats. */
+struct vtpu_cuda_stats {
+  uint64_t launches;       /* kernel launches through the gate */
+  uint64_t graph_launches; /* ... of which cuGraphLaunch */
+  uint64_t gate_waits;     /* launches that waited for the bucket */
+  uint64_t gate_ns;        /* time in the gate, waits included */
+  uint64_t wait_ns;        /* ... of which waiting for the bucket */
+  uint64_t refused;        /* allocations refused past the cap */
+  uint64_t charged_bytes;  /* bytes charged to the region, live */
+  uint64_t spilled_bytes;  /* managed bytes allocated past the cap, live */
+  uint64_t booked_us;      /* device time the watcher booked */
+  uint64_t debited_us;     /* ... of which debited from the bucket */
+  uint64_t busy_ticks;     /* watcher ticks with work pending, per device */
+  uint64_t shared_ticks;   /* ... while another process was busy too */
+  uint64_t procaddr_hooks; /* cuGetProcAddress answers replaced */
+  int32_t state;           /* STATE_* */
+  int32_t meter;           /* 0 idle, 1 metering, -1 cannot meter */
+  /* the parsed quota */
+  int32_t ndev;
+  int32_t core_pct;
+  int32_t policy;
+  int32_t priority;
+  int32_t oversubscribe;
+  int32_t oom_killer;
+  uint64_t min_cost_us;
+  uint64_t limits[VTPU_MAX_DEVICES];
+};
+
+struct Counters {
+  std::atomic<uint64_t> launches{0}, graph_launches{0}, gate_waits{0},
+      gate_ns{0}, wait_ns{0}, refused{0}, charged_bytes{0},
+      spilled_bytes{0}, booked_us{0}, debited_us{0}, busy_ticks{0},
+      shared_ticks{0}, procaddr_hooks{0};
+};
+static Counters C;
+
+static Quota g_q;
+static std::atomic<int> g_state{-1}; /* -1 until the first hooked call */
+static vtpu_region* g_region = nullptr;
+static std::mutex g_init_mu;
+static std::atomic<bool> g_registered{false};
+
+/* Parse the env and attach the region, once, at the first hooked call
+ * (never in a constructor: the library is in every process of the
+ * container).  Returns the state. */
+static int state() {
+  int s = g_state.load(std::memory_order_acquire);
+  if (s >= 0) return s;
+  std::lock_guard<std::mutex> lk(g_init_mu);
+  s = g_state.load(std::memory_order_relaxed);
+  if (s >= 0) return s;
+  if (const char* lvl = getenv("VTPU_LOG_LEVEL")) g_log_level = atoi(lvl);
+  g_q = parse_quota();
+  if (!g_q.any && !g_q.bad) {
+    s = STATE_OFF;
+    LOG(3, "no quota env; forwarding everything");
+  } else if (g_q.bad) {
+    s = STATE_FAILCLOSED;
+    LOG(0, "a VTPU_* quota value does not parse; REFUSING every "
+        "allocation and launch rather than run unenforced");
+  } else {
+    int32_t pcts[VTPU_MAX_DEVICES];
+    for (int i = 0; i < g_q.ndev; i++) pcts[i] = g_q.core_pct;
+    g_region = vtpu_region_open(g_q.region.c_str(), g_q.ndev, g_q.limits,
+                                pcts);
+    if (g_region == nullptr) {
+      s = STATE_FAILCLOSED;
+      LOG(0, "cannot open the shared region %s (%s); REFUSING every "
+          "allocation and launch rather than run unenforced",
+          g_q.region.c_str(), strerror(errno));
+    } else {
+      s = STATE_ENFORCING;
+      LOG(3, "region %s: %d device(s), limit[0]=%llu, core=%d%%",
+          g_q.region.c_str(), g_q.ndev, (unsigned long long)g_q.limits[0],
+          (int)g_q.core_pct);
+    }
+  }
+  g_state.store(s, std::memory_order_release);
+  return s;
+}
+
+/* Take a slot in the region (at the first CUDA call that charges or
+ * launches; the NVML view only reads). */
+static void enroll() {
+  if (g_registered.load(std::memory_order_acquire)) return;
+  std::lock_guard<std::mutex> lk(g_init_mu);
+  if (g_registered.load(std::memory_order_relaxed)) return;
+  vtpu_proc_register(g_region, 0);
+  g_registered.store(true, std::memory_order_release);
+}
+
+static int region_dev(int dev) {
+  return g_region && dev >= 0 && dev < vtpu_region_ndevices(g_region) ? dev
+                                                                      : 0;
+}
+
+/* The current context's device as a region ordinal. */
+static int current_dev() {
+  resolve_reals(LIB_CUDA);
+  CUdevice d = 0;
+  fn_cuCtxGetDevice* f = R.cuCtxGetDevice.load(std::memory_order_acquire);
+  if (f == nullptr || f(&d) != CUDA_SUCCESS) d = 0;
+  return region_dev(d);
+}
+
+/* ------------------------------------------------------------------ */
+/* memory                                                             */
+/* ------------------------------------------------------------------ */
+
+struct Charge {
+  int dev;
+  uint64_t bytes;
+  bool managed;     /* spilled past the cap: allocated managed, uncharged */
+};
+
+static std::mutex g_mem_mu;
+/* Heap-allocated and never destroyed: frees still arrive during exit. */
+static auto* g_ptrs = new std::unordered_map<CUdeviceptr, Charge>();
+static auto* g_handles =
+    new std::unordered_map<CUmemGenericAllocationHandle, Charge>();
+
+static CUresult oom(int dev, uint64_t bytes) {
+  uint64_t freeb = 0, total = 0;
+  vtpu_mem_info(g_region, dev, &freeb, &total);
+  C.refused++;
+  LOG(1, "vGPU device %d OOM: requested %llu bytes, quota %llu (free %llu)",
+      dev, (unsigned long long)bytes, (unsigned long long)total,
+      (unsigned long long)freeb);
+  if (g_q.oom_killer) {
+    fprintf(stderr, "[vtpu_cuda] active OOM killer: device %d over its "
+            "quota\n", dev);
+    kill(getpid(), SIGKILL);
+  }
+  return CUDA_ERROR_OUT_OF_MEMORY;
+}
+
+/* Charge `bytes` on the current device, run `alloc`, record the result
+ * under `key` in `map`.  Past the cap: OOM, or a managed allocation when
+ * `spill` is given (VTPU_OVERSUBSCRIBE, synchronous allocations only). */
+template <class Key, class Alloc, class Spill>
+static CUresult charged(std::unordered_map<Key, Charge>* map, Key* key,
+                        int dev, uint64_t bytes, Alloc alloc, Spill spill) {
+  if (vtpu_mem_acquire(g_region, dev, bytes, 0) != 0) {
+    CUresult r = spill();
+    if (r != CUDA_ERROR_NOT_SUPPORTED) {
+      if (r == CUDA_SUCCESS) {
+        std::lock_guard<std::mutex> lk(g_mem_mu);
+        (*map)[*key] = Charge{dev, bytes, true};
+        C.spilled_bytes += bytes;
+      }
+      return r;
+    }
+    return oom(dev, bytes);
+  }
+  CUresult r = alloc();
+  if (r != CUDA_SUCCESS) {
+    vtpu_mem_release(g_region, dev, bytes);
+    return r;
+  }
+  C.charged_bytes += bytes;
+  std::lock_guard<std::mutex> lk(g_mem_mu);
+  (*map)[*key] = Charge{dev, bytes, false};
+  return r;
+}
+
+static CUresult no_spill() { return CUDA_ERROR_NOT_SUPPORTED; }
+
+template <class Key>
+static void release(std::unordered_map<Key, Charge>* map, Key key) {
+  Charge c{};
+  {
+    std::lock_guard<std::mutex> lk(g_mem_mu);
+    auto it = map->find(key);
+    if (it == map->end()) return;
+    c = it->second;
+    map->erase(it);
+  }
+  if (c.managed) {
+    C.spilled_bytes -= c.bytes;
+    return;
+  }
+  vtpu_mem_release(g_region, c.dev, c.bytes);
+  C.charged_bytes -= c.bytes;
+}
+
+/* Memory entry points share one shape: forward when no quota is set,
+ * refuse when it failed closed, else charge around the real call. */
+#define MEM_PROLOGUE(forward)                              \
+  int st_ = state();                                       \
+  if (st_ == STATE_OFF) return forward;                    \
+  if (st_ == STATE_FAILCLOSED) return CUDA_ERROR_NOT_PERMITTED; \
+  enroll();
+
+extern Hook g_hooks[];
+enum HookId {
+  H_cuGetProcAddress,
+  H_cuGetProcAddress_v2,
+  H_cuMemAlloc_v2,
+  H_cuMemAllocPitch_v2,
+  H_cuMemAllocManaged,
+  H_cuMemAllocAsync,
+  H_cuMemAllocAsync_ptsz,
+  H_cuMemAllocFromPoolAsync,
+  H_cuMemAllocFromPoolAsync_ptsz,
+  H_cuMemCreate,
+  H_cuMemFree_v2,
+  H_cuMemFreeAsync,
+  H_cuMemFreeAsync_ptsz,
+  H_cuMemRelease,
+  H_cuMemGetInfo_v2,
+  H_cuDeviceTotalMem_v2,
+  H_cuLaunchKernel,
+  H_cuLaunchKernel_ptsz,
+  H_cuLaunchKernelEx,
+  H_cuLaunchKernelEx_ptsz,
+  H_cuLaunchCooperativeKernel,
+  H_cuLaunchCooperativeKernel_ptsz,
+  H_cuGraphLaunch,
+  H_cuGraphLaunch_ptsz,
+  H_nvmlDeviceGetMemoryInfo,
+  H_nvmlDeviceGetMemoryInfo_v2,
+  H_COUNT
+};
+#define REAL(id, type) real<type>(g_hooks[id])
+
+EXPORT CUresult cuMemAlloc_v2(CUdeviceptr* dptr, size_t bytesize) {
+  auto* f = REAL(H_cuMemAlloc_v2, fn_cuMemAlloc_v2);
+  MEM_PROLOGUE(f(dptr, bytesize));
+  if (dptr == nullptr || bytesize == 0) return f(dptr, bytesize);
+  return charged(
+      g_ptrs, dptr, current_dev(), bytesize,
+      [&] { return f(dptr, bytesize); },
+      [&] {
+        if (!g_q.oversubscribe) return CUDA_ERROR_NOT_SUPPORTED;
+        return R.cuMemAllocManaged.load()(dptr, bytesize,
+                                          CU_MEM_ATTACH_GLOBAL);
+      });
+}
+
+EXPORT CUresult cuMemAllocPitch_v2(CUdeviceptr* dptr, size_t* pPitch,
+                                   size_t WidthInBytes, size_t Height,
+                                   unsigned int ElementSizeBytes) {
+  auto* f = REAL(H_cuMemAllocPitch_v2, fn_cuMemAllocPitch_v2);
+  auto call = [&] {
+    return f(dptr, pPitch, WidthInBytes, Height, ElementSizeBytes);
+  };
+  MEM_PROLOGUE(call());
+  uint64_t est = (uint64_t)WidthInBytes * Height;
+  if (dptr == nullptr || pPitch == nullptr || est == 0) return call();
+  int dev = current_dev();
+  CUresult r = charged(g_ptrs, dptr, dev, est, call, [&] {
+    if (!g_q.oversubscribe) return CUDA_ERROR_NOT_SUPPORTED;
+    *pPitch = WidthInBytes;
+    return R.cuMemAllocManaged.load()(dptr, est, CU_MEM_ATTACH_GLOBAL);
+  });
+  if (r == CUDA_SUCCESS) {
+    /* Settle the estimate to the padded size the driver chose (admitted
+     * past the cap: the memory exists now). */
+    uint64_t actual = (uint64_t)*pPitch * Height;
+    std::lock_guard<std::mutex> lk(g_mem_mu);
+    Charge& c = (*g_ptrs)[*dptr];
+    if (!c.managed && actual > est) {
+      vtpu_mem_acquire(g_region, dev, actual - est, 1);
+      C.charged_bytes += actual - est;
+      c.bytes = actual;
+    }
+  }
+  return r;
+}
+
+EXPORT CUresult cuMemAllocManaged(CUdeviceptr* dptr, size_t bytesize,
+                                  unsigned int flags) {
+  auto* f = REAL(H_cuMemAllocManaged, fn_cuMemAllocManaged);
+  MEM_PROLOGUE(f(dptr, bytesize, flags));
+  if (dptr == nullptr || bytesize == 0) return f(dptr, bytesize, flags);
+  return charged(g_ptrs, dptr, current_dev(), bytesize,
+                 [&] { return f(dptr, bytesize, flags); }, no_spill);
+}
+
+static CUresult alloc_async(Hook& k, CUdeviceptr* dptr, size_t bytesize,
+                            CUstream s) {
+  auto* f = real<fn_cuMemAllocAsync>(k);
+  MEM_PROLOGUE(f(dptr, bytesize, s));
+  if (dptr == nullptr || bytesize == 0) return f(dptr, bytesize, s);
+  return charged(g_ptrs, dptr, current_dev(), bytesize,
+                 [&] { return f(dptr, bytesize, s); }, no_spill);
+}
+EXPORT CUresult cuMemAllocAsync(CUdeviceptr* dptr, size_t bytesize,
+                                CUstream hStream) {
+  return alloc_async(g_hooks[H_cuMemAllocAsync], dptr, bytesize, hStream);
+}
+EXPORT CUresult cuMemAllocAsync_ptsz(CUdeviceptr* dptr, size_t bytesize,
+                                     CUstream hStream) {
+  return alloc_async(g_hooks[H_cuMemAllocAsync_ptsz], dptr, bytesize,
+                     hStream);
+}
+
+static CUresult alloc_pool(Hook& k, CUdeviceptr* dptr, size_t bytesize,
+                           CUmemoryPool pool, CUstream s) {
+  auto* f = real<fn_cuMemAllocFromPoolAsync>(k);
+  MEM_PROLOGUE(f(dptr, bytesize, pool, s));
+  if (dptr == nullptr || bytesize == 0) return f(dptr, bytesize, pool, s);
+  return charged(g_ptrs, dptr, current_dev(), bytesize,
+                 [&] { return f(dptr, bytesize, pool, s); }, no_spill);
+}
+EXPORT CUresult cuMemAllocFromPoolAsync(CUdeviceptr* dptr, size_t bytesize,
+                                        CUmemoryPool pool, CUstream hStream) {
+  return alloc_pool(g_hooks[H_cuMemAllocFromPoolAsync], dptr, bytesize, pool,
+                    hStream);
+}
+EXPORT CUresult cuMemAllocFromPoolAsync_ptsz(CUdeviceptr* dptr,
+                                             size_t bytesize,
+                                             CUmemoryPool pool,
+                                             CUstream hStream) {
+  return alloc_pool(g_hooks[H_cuMemAllocFromPoolAsync_ptsz], dptr, bytesize,
+                    pool, hStream);
+}
+
+/* Virtual memory management (PyTorch's expandable segments): physical
+ * memory is created here, on the device the properties name. */
+EXPORT CUresult cuMemCreate(CUmemGenericAllocationHandle* handle,
+                            size_t size, const CUmemAllocationProp* prop,
+                            unsigned long long flags) {
+  auto* f = REAL(H_cuMemCreate, fn_cuMemCreate);
+  MEM_PROLOGUE(f(handle, size, prop, flags));
+  if (handle == nullptr || prop == nullptr || size == 0 ||
+      prop->location.type != CU_MEM_LOCATION_TYPE_DEVICE)
+    return f(handle, size, prop, flags);
+  return charged(g_handles, handle, region_dev(prop->location.id), size,
+                 [&] { return f(handle, size, prop, flags); }, no_spill);
+}
+
+EXPORT CUresult cuMemFree_v2(CUdeviceptr dptr) {
+  CUresult r = REAL(H_cuMemFree_v2, fn_cuMemFree_v2)(dptr);
+  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING)
+    release(g_ptrs, dptr);
+  return r;
+}
+
+static CUresult free_async(Hook& k, CUdeviceptr dptr, CUstream s) {
+  CUresult r = real<fn_cuMemFreeAsync>(k)(dptr, s);
+  /* Stream-ordered: the memory returns to the pool in stream order; its
+   * charge goes now. */
+  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING)
+    release(g_ptrs, dptr);
+  return r;
+}
+EXPORT CUresult cuMemFreeAsync(CUdeviceptr dptr, CUstream hStream) {
+  return free_async(g_hooks[H_cuMemFreeAsync], dptr, hStream);
+}
+EXPORT CUresult cuMemFreeAsync_ptsz(CUdeviceptr dptr, CUstream hStream) {
+  return free_async(g_hooks[H_cuMemFreeAsync_ptsz], dptr, hStream);
+}
+
+EXPORT CUresult cuMemRelease(CUmemGenericAllocationHandle handle) {
+  CUresult r = REAL(H_cuMemRelease, fn_cuMemRelease)(handle);
+  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING)
+    release(g_handles, handle);
+  return r;
+}
+
+/* ---- the quota view ---------------------------------------------- */
+
+/* (free, total) of region ordinal `dev` when it has a cap; false when
+ * the real answer stands. */
+static bool quota_view(int dev, uint64_t* freeb, uint64_t* total) {
+  if (state() != STATE_ENFORCING) return false;
+  return vtpu_mem_info(g_region, region_dev(dev), freeb, total) == 0 &&
+         *total > 0;
+}
+
+EXPORT CUresult cuMemGetInfo_v2(size_t* free, size_t* total) {
+  CUresult r = REAL(H_cuMemGetInfo_v2, fn_cuMemGetInfo_v2)(free, total);
+  uint64_t f = 0, t = 0;
+  if (r == CUDA_SUCCESS && quota_view(current_dev(), &f, &t)) {
+    if (free) *free = f;
+    if (total) *total = t;
+  }
+  return r;
+}
+
+EXPORT CUresult cuDeviceTotalMem_v2(size_t* bytes, CUdevice dev) {
+  CUresult r = REAL(H_cuDeviceTotalMem_v2, fn_cuDeviceTotalMem_v2)(bytes, dev);
+  uint64_t f = 0, t = 0;
+  if (r == CUDA_SUCCESS && bytes && quota_view(dev, &f, &t)) *bytes = t;
+  return r;
+}
+
+static int nvml_index(nvmlDevice_t device) {
+  static std::atomic<fn_nvmlDeviceGetIndex*> get{nullptr};
+  fn_nvmlDeviceGetIndex* f = get.load(std::memory_order_acquire);
+  if (f == nullptr) {
+    f = (fn_nvmlDeviceGetIndex*)real_of(LIB_NVML, "nvmlDeviceGetIndex");
+    get.store(f, std::memory_order_release);
+  }
+  unsigned int i = 0;
+  return f && f(device, &i) == NVML_SUCCESS ? (int)i : 0;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetMemoryInfo(nvmlDevice_t device,
+                                            nvmlMemory_t* memory) {
+  nvmlReturn_t r = REAL(H_nvmlDeviceGetMemoryInfo,
+                        fn_nvmlDeviceGetMemoryInfo)(device, memory);
+  uint64_t f = 0, t = 0;
+  if (r == NVML_SUCCESS && memory && quota_view(nvml_index(device), &f, &t)) {
+    memory->total = t;
+    memory->free = f;
+    memory->used = t - f;
+  }
+  return r;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetMemoryInfo_v2(nvmlDevice_t device,
+                                               nvmlMemory_v2_t* memory) {
+  nvmlReturn_t r = REAL(H_nvmlDeviceGetMemoryInfo_v2,
+                        fn_nvmlDeviceGetMemoryInfo_v2)(device, memory);
+  uint64_t f = 0, t = 0;
+  if (r == NVML_SUCCESS && memory && quota_view(nvml_index(device), &f, &t)) {
+    memory->total = t;
+    memory->reserved = 0;
+    memory->free = f;
+    memory->used = t - f;
+  }
+  return r;
+}
+
+/* ------------------------------------------------------------------ */
+/* compute: the launch gate and the device-time watcher               */
+/* ------------------------------------------------------------------ */
+
+static bool core_limited() {
+  return g_q.core_pct > 0 && g_q.core_pct < 100 &&
+         g_q.policy != POLICY_DISABLE;
+}
+
+/* DEFAULT gates only while another process shares the region; the probe
+ * sweeps under the region lock, so it is trusted for 100 ms. */
+static bool gating_active() {
+  if (!core_limited()) return false;
+  if (g_q.policy == POLICY_FORCE) return true;
+  static std::atomic<uint64_t> next_probe{0};
+  static std::atomic<bool> cached{true};
+  uint64_t now = mono_ns();
+  uint64_t next = next_probe.load(std::memory_order_relaxed);
+  if (now >= next &&
+      next_probe.compare_exchange_strong(next, now + 100000000ull))
+    cached.store(vtpu_region_active_procs(g_region) > 1,
+                 std::memory_order_relaxed);
+  return cached.load(std::memory_order_relaxed);
+}
+
+/* The streams this process launched on, with their context and region
+ * device: the watcher asks each whether it has work pending.  Appended
+ * under g_streams_mu, read without it up to g_nstreams. */
+struct Stream {
+  CUcontext ctx;
+  CUstream stream;
+  int dev;
+};
+static const int kMaxStreams = 64;
+static Stream g_streams[kMaxStreams];
+static std::atomic<int> g_nstreams{0};
+static std::mutex g_streams_mu;
+
+/* Per device: the bucket was in debt at the watcher's last booking
+ * (launches wait it out), and the floor charged since that booking. */
+static std::atomic<bool> g_debt[VTPU_MAX_DEVICES];
+static std::atomic<uint64_t> g_floor_us[VTPU_MAX_DEVICES];
+
+static void start_watcher();
+
+/* The region device of a launch on `stream`; a stream seen for the first
+ * time is registered for the watcher. */
+static int launch_dev(CUstream stream) {
+  resolve_reals(LIB_CUDA);
+  CUcontext ctx = nullptr;
+  fn_cuCtxGetCurrent* cur = R.cuCtxGetCurrent.load(std::memory_order_acquire);
+  if (cur == nullptr || cur(&ctx) != CUDA_SUCCESS) ctx = nullptr;
+  int n = g_nstreams.load(std::memory_order_acquire);
+  for (int i = 0; i < n; i++)
+    if (g_streams[i].ctx == ctx && g_streams[i].stream == stream)
+      return g_streams[i].dev;
+  std::lock_guard<std::mutex> lk(g_streams_mu);
+  n = g_nstreams.load(std::memory_order_relaxed);
+  for (int i = 0; i < n; i++)
+    if (g_streams[i].ctx == ctx && g_streams[i].stream == stream)
+      return g_streams[i].dev;
+  int dev = current_dev();
+  if (n < kMaxStreams) {
+    g_streams[n] = Stream{ctx, stream, dev};
+    g_nstreams.store(n + 1, std::memory_order_release);
+  } else if (n == kMaxStreams) {
+    LOG(1, "more than %d streams: later ones are gated but not metered",
+        kMaxStreams);
+    g_nstreams.store(n + 1, std::memory_order_release);
+  }
+  start_watcher();
+  return dev;
+}
+
+static CUresult gate(CUstream stream, bool graph) {
+  C.launches++;
+  if (graph) C.graph_launches++;
+  int st = state();
+  if (st == STATE_OFF) return CUDA_SUCCESS;
+  if (st == STATE_FAILCLOSED) return CUDA_ERROR_NOT_PERMITTED;
+  uint64_t t0 = mono_ns();
+  enroll();
+  int dev = launch_dev(stream);
+  /* With a floor each launch is charged it up front, as vtpu charges each
+   * execute; otherwise a launch only waits while the watcher last saw the
+   * bucket in debt, and costs no region call. */
+  uint64_t cost = g_q.min_cost_us;
+  if (cost ? gating_active() : g_debt[dev].load(std::memory_order_relaxed)) {
+    uint64_t t1 = mono_ns();
+    if (vtpu_rate_acquire(g_region, dev, cost, g_q.priority) != 0) {
+      vtpu_rate_block(g_region, dev, cost, g_q.priority);
+      C.gate_waits++;
+      C.wait_ns += mono_ns() - t1;
+    }
+    if (cost) g_floor_us[dev] += cost;
+    g_debt[dev].store(false, std::memory_order_relaxed);
+  }
+  C.gate_ns += mono_ns() - t0;
+  return CUDA_SUCCESS;
+}
+
+/* Book `us` of device time that this process ran on `dev` since the last
+ * booking, of which `floor_us` was charged up front at launch. */
+static void book(int dev, uint64_t us, uint64_t floor_us) {
+  if (us) {
+    vtpu_busy_add(g_region, dev, us);
+    C.booked_us += us;
+  }
+  if (us > floor_us && gating_active()) {
+    vtpu_rate_adjust(g_region, dev, (int64_t)(us - floor_us));
+    C.debited_us += us - floor_us;
+  }
+}
+
+/* ---- the watcher: the process's own device time -------------------- */
+
+/* Every tick the watcher asks each stream the process launched on
+ * whether work is pending (cuStreamQuery).  A device with pending work is
+ * busy for that tick.  The card time-slices between processes, so while
+ * k processes are busy on it each runs about 1/k of the tick: the
+ * processes of one region publish their busy ticks in a file beside it
+ * (<region>.busy, one slot each) and each books tick/k.  Every
+ * kTicksPerBooking ticks the watcher books that time into the duty
+ * counter and, while gating, into the bucket, and reads the bucket back:
+ * below 1 µs, launches wait.
+ *
+ * A query is not free: on the card measured, queries every 2 ms slowed
+ * the launching thread of a launch-bound tenant (PERF.md).  So the
+ * watcher ticks every kTickNs only while the share gates, and every
+ * kIdleTickNs otherwise, when what it books feeds only the duty counter.
+ *
+ * NVML's per-process utilisation (the reference's source) would give
+ * each process's device time directly, but the card's driver may not
+ * offer it, and NVML names processes by their host pid, which a
+ * container does not see (both so where this was measured, PERF.md).
+ * Launches on a thread's per-thread default stream cannot be queried
+ * from the watcher's thread: they are gated, but not metered. */
+static const uint64_t kTickNs = 2000000ull;
+static const uint64_t kIdleTickNs = 50000000ull;
+static const int kTicksPerBooking = 5;
+static const int kBusySlots = VTPU_MAX_PROCS;
+
+struct BusySlot {
+  int32_t pid;
+  int32_t pad;
+  uint64_t until_ns[VTPU_MAX_DEVICES]; /* busy through (CLOCK_MONOTONIC) */
+};
+
+static std::atomic<int> g_meter{0};
+static std::mutex g_watch_mu;
+static std::condition_variable g_watch_cv;
+static bool g_watch_stop = false;
+static pthread_t g_watch_thread;
+static std::atomic<bool> g_watch_started{false};
+
+/* The region's busy file, mapped; nullptr when it cannot be (each process
+ * then books its whole busy ticks). */
+static BusySlot* open_busy_file() {
+  std::string path = g_q.region + ".busy";
+  int fd = open(path.c_str(), O_RDWR | O_CREAT | O_CLOEXEC, 0666);
+  if (fd < 0) return nullptr;
+  const size_t size = sizeof(BusySlot) * kBusySlots;
+  struct stat st;
+  void* p = MAP_FAILED;
+  if (fstat(fd, &st) == 0 &&
+      ((size_t)st.st_size >= size || ftruncate(fd, (off_t)size) == 0))
+    p = mmap(nullptr, size, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  close(fd);
+  if (p == MAP_FAILED) {
+    LOG(1, "cannot map %s: co-tenants' time slices are billed to each",
+        path.c_str());
+    return nullptr;
+  }
+  return (BusySlot*)p;
+}
+
+/* This process's slot: its own, or a free one (no pid, or a dead one's). */
+static BusySlot* claim_slot(BusySlot* file) {
+  int32_t me = (int32_t)getpid();
+  for (int i = 0; i < kBusySlots; i++)
+    if (__atomic_load_n(&file[i].pid, __ATOMIC_RELAXED) == me) return &file[i];
+  for (int i = 0; i < kBusySlots; i++) {
+    int32_t owner = __atomic_load_n(&file[i].pid, __ATOMIC_RELAXED);
+    if ((owner == 0 || (kill(owner, 0) != 0 && errno == ESRCH)) &&
+        __atomic_compare_exchange_n(&file[i].pid, &owner, me, false,
+                                    __ATOMIC_ACQ_REL, __ATOMIC_RELAXED))
+      return &file[i];
+  }
+  return nullptr;
+}
+
+/* Publish that this process is busy on `dev` through the next ticks, and
+ * count the region's processes busy on it now (this one included). */
+static int busy_share(BusySlot* file, int dev, uint64_t now, uint64_t tick) {
+  BusySlot* mine = file ? claim_slot(file) : nullptr;
+  if (mine == nullptr) return 1;
+  __atomic_store_n(&mine->until_ns[dev], now + 2 * tick, __ATOMIC_RELAXED);
+  int k = 0;
+  for (int i = 0; i < kBusySlots; i++)
+    if (__atomic_load_n(&file[i].until_ns[dev], __ATOMIC_RELAXED) > now) k++;
+  return k > 0 ? k : 1;
+}
+
+static void* watch_main(void*) {
+  resolve_reals(LIB_CUDA);
+  fn_cuStreamQuery* query = R.cuStreamQuery.load();
+  fn_cuCtxSetCurrent* set_ctx = R.cuCtxSetCurrent.load();
+  if (!query || !set_ctx) {
+    g_meter.store(-1);
+    LOG(0, "cuStreamQuery unavailable: device time is not metered");
+    return nullptr;
+  }
+  g_meter.store(1);
+  BusySlot* file = open_busy_file();
+  uint64_t own_ns[VTPU_MAX_DEVICES] = {};
+  uint64_t last = mono_ns();
+  CUcontext current = nullptr;
+  std::unique_lock<std::mutex> lk(g_watch_mu);
+  for (int tick = 1; !g_watch_stop; tick++) {
+    const uint64_t tick_ns = gating_active() ? kTickNs : kIdleTickNs;
+    g_watch_cv.wait_for(lk, std::chrono::nanoseconds(tick_ns));
+    if (g_watch_stop) break;
+    lk.unlock();
+    uint64_t now = mono_ns(), dt = now - last;
+    last = now;
+    bool busy[VTPU_MAX_DEVICES] = {};
+    int n = std::min(g_nstreams.load(std::memory_order_acquire), kMaxStreams);
+    for (int i = 0; i < n; i++) {
+      const Stream& s = g_streams[i];
+      if (busy[s.dev]) continue;
+      if (s.ctx != current && set_ctx(s.ctx) == CUDA_SUCCESS) current = s.ctx;
+      busy[s.dev] = query(s.stream) == CUDA_ERROR_NOT_READY;
+    }
+    for (int d = 0; d < VTPU_MAX_DEVICES; d++) {
+      if (!busy[d]) continue;
+      int k = busy_share(file, d, now, tick_ns);
+      own_ns[d] += dt / k;
+      C.busy_ticks++;
+      if (k > 1) C.shared_ticks++;
+    }
+    if (tick % kTicksPerBooking == 0) {
+      bool seen[VTPU_MAX_DEVICES] = {};
+      for (int i = 0; i < n; i++) seen[g_streams[i].dev] = true;
+      for (int d = 0; d < VTPU_MAX_DEVICES; d++) {
+        if (!seen[d]) continue;
+        book(d, own_ns[d] / 1000, g_floor_us[d].exchange(0));
+        own_ns[d] %= 1000;
+        g_debt[d].store(g_q.priority > 0 && gating_active() &&
+                            vtpu_rate_level(g_region, d) < 1,
+                        std::memory_order_relaxed);
+      }
+    }
+    lk.lock();
+  }
+  return nullptr;
+}
+
+static void stop_watcher() {
+  if (!g_watch_started.exchange(false)) return;
+  {
+    std::lock_guard<std::mutex> lk(g_watch_mu);
+    g_watch_stop = true;
+  }
+  g_watch_cv.notify_all();
+  pthread_join(g_watch_thread, nullptr);
+}
+
+static void start_watcher() {
+  if (g_watch_started.exchange(true)) return;
+  sigset_t all, old;
+  sigfillset(&all);
+  pthread_sigmask(SIG_SETMASK, &all, &old);  /* signals stay with the app */
+  int rc = pthread_create(&g_watch_thread, nullptr, watch_main, nullptr);
+  pthread_sigmask(SIG_SETMASK, &old, nullptr);
+  if (rc != 0) {
+    g_meter.store(-1);
+    LOG(0, "cannot start the device-time watcher (%s)", strerror(rc));
+    return;
+  }
+  /* Join before the CUDA runtime's own exit handlers tear the context
+   * down (they were registered earlier, so they run later). */
+  atexit(stop_watcher);
+}
+
+/* A forked child shares no thread, stream or allocation with its parent,
+ * and takes its own slot in the region; a lock another thread held at
+ * the fork is re-made unlocked. */
+static void after_fork_child() {
+  new (&g_init_mu) std::mutex();
+  new (&g_mem_mu) std::mutex();
+  new (&g_streams_mu) std::mutex();
+  new (&g_watch_mu) std::mutex();
+  new (&g_watch_cv) std::condition_variable();
+  g_registered.store(false);
+  g_watch_started.store(false);
+  g_watch_stop = false;
+  g_nstreams.store(0);
+  g_ptrs = new std::unordered_map<CUdeviceptr, Charge>();
+  g_handles = new std::unordered_map<CUmemGenericAllocationHandle, Charge>();
+  C.charged_bytes = 0;
+  C.spilled_bytes = 0;
+}
+__attribute__((constructor)) static void install_fork_handler() {
+  /* Registers a handler only: no env is read and nothing is opened. */
+  pthread_atfork(nullptr, nullptr, after_fork_child);
+}
+
+/* ---- launch entry points ----------------------------------------- */
+
+#define LAUNCH_PARAMS                                                     \
+  CUfunction f, unsigned int gx, unsigned int gy, unsigned int gz,        \
+      unsigned int bx, unsigned int by, unsigned int bz, unsigned int shm, \
+      CUstream s
+#define LAUNCH_ARGS f, gx, gy, gz, bx, by, bz, shm, s
+
+static CUresult launch(Hook& k, LAUNCH_PARAMS, void** params, void** extra) {
+  CUresult g = gate(s, false);
+  if (g != CUDA_SUCCESS) return g;
+  return real<fn_cuLaunchKernel>(k)(LAUNCH_ARGS, params, extra);
+}
+EXPORT CUresult cuLaunchKernel(LAUNCH_PARAMS, void** params, void** extra) {
+  return launch(g_hooks[H_cuLaunchKernel], LAUNCH_ARGS, params, extra);
+}
+EXPORT CUresult cuLaunchKernel_ptsz(LAUNCH_PARAMS, void** params,
+                                    void** extra) {
+  return launch(g_hooks[H_cuLaunchKernel_ptsz], LAUNCH_ARGS, params, extra);
+}
+
+static CUresult launch_coop(Hook& k, LAUNCH_PARAMS, void** params) {
+  CUresult g = gate(s, false);
+  if (g != CUDA_SUCCESS) return g;
+  return real<fn_cuLaunchCooperativeKernel>(k)(LAUNCH_ARGS, params);
+}
+EXPORT CUresult cuLaunchCooperativeKernel(LAUNCH_PARAMS, void** params) {
+  return launch_coop(g_hooks[H_cuLaunchCooperativeKernel], LAUNCH_ARGS,
+                     params);
+}
+EXPORT CUresult cuLaunchCooperativeKernel_ptsz(LAUNCH_PARAMS,
+                                               void** params) {
+  return launch_coop(g_hooks[H_cuLaunchCooperativeKernel_ptsz], LAUNCH_ARGS,
+                     params);
+}
+
+static CUresult launch_ex(Hook& k, const CUlaunchConfig* config,
+                          CUfunction f, void** params, void** extra) {
+  CUresult g = gate(config ? config->hStream : nullptr, false);
+  if (g != CUDA_SUCCESS) return g;
+  return real<fn_cuLaunchKernelEx>(k)(config, f, params, extra);
+}
+EXPORT CUresult cuLaunchKernelEx(const CUlaunchConfig* config, CUfunction f,
+                                 void** params, void** extra) {
+  return launch_ex(g_hooks[H_cuLaunchKernelEx], config, f, params, extra);
+}
+EXPORT CUresult cuLaunchKernelEx_ptsz(const CUlaunchConfig* config,
+                                      CUfunction f, void** params,
+                                      void** extra) {
+  return launch_ex(g_hooks[H_cuLaunchKernelEx_ptsz], config, f, params,
+                   extra);
+}
+
+static CUresult graph_launch(Hook& k, CUgraphExec g, CUstream s) {
+  CUresult r = gate(s, true);
+  if (r != CUDA_SUCCESS) return r;
+  return real<fn_cuGraphLaunch>(k)(g, s);
+}
+EXPORT CUresult cuGraphLaunch(CUgraphExec hGraphExec, CUstream hStream) {
+  return graph_launch(g_hooks[H_cuGraphLaunch], hGraphExec, hStream);
+}
+EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec hGraphExec, CUstream hStream) {
+  return graph_launch(g_hooks[H_cuGraphLaunch_ptsz], hGraphExec, hStream);
+}
+
+/* ------------------------------------------------------------------ */
+/* symbol resolution                                                  */
+/* ------------------------------------------------------------------ */
+
+/* Replace the driver's answer by the wrapper when it is the real address
+ * of a hooked function. */
+static void substitute(void** pfn) {
+  if (pfn == nullptr || *pfn == nullptr) return;
+  resolve_reals(LIB_CUDA);
+  for (size_t i = 0; i < g_nhooks; i++) {
+    Hook& k = g_hooks[i];
+    if (k.lib == LIB_CUDA &&
+        k.real.load(std::memory_order_acquire) == *pfn) {
+      *pfn = k.wrapper;
+      C.procaddr_hooks++;
+      return;
+    }
+  }
+}
+
+EXPORT CUresult cuGetProcAddress_v2(const char* symbol, void** pfn,
+                                    int cudaVersion, cuuint64_t flags,
+                                    CUdriverProcAddressQueryResult* status) {
+  CUresult r = REAL(H_cuGetProcAddress_v2, fn_cuGetProcAddress_v2)(
+      symbol, pfn, cudaVersion, flags, status);
+  if (r == CUDA_SUCCESS) substitute(pfn);
+  return r;
+}
+
+EXPORT CUresult cuGetProcAddress(const char* symbol, void** pfn,
+                                 int cudaVersion, cuuint64_t flags) {
+  CUresult r = REAL(H_cuGetProcAddress, fn_cuGetProcAddress)(
+      symbol, pfn, cudaVersion, flags);
+  if (r == CUDA_SUCCESS) substitute(pfn);
+  return r;
+}
+
+/* dlsym(RTLD_NEXT, name) as the CALLER would see it: the first object
+ * after the caller's in load order that defines `name`.  Forwarding
+ * RTLD_NEXT as is would search after this library instead, and hand an
+ * interposing caller its own definition back. */
+static void* next_after(const void* caller, const char* name) {
+  Dl_info info;
+  struct link_map* lm = nullptr;
+  if (!dladdr1(caller, &info, (void**)&lm, RTLD_DL_LINKMAP) || !lm)
+    return real_dlsym()(RTLD_NEXT, name);
+  for (struct link_map* m = lm->l_next; m; m = m->l_next) {
+    /* A proper handle for each object (the vdso's map is none). */
+    void* h = m->l_name && *m->l_name
+                  ? dlopen(m->l_name, RTLD_LAZY | RTLD_NOLOAD)
+                  : nullptr;
+    if (h == nullptr) continue;
+    void* p = real_dlsym()(h, name);
+    dlclose(h);
+    struct link_map* owner = nullptr;
+    if (p && dladdr1(p, &info, (void**)&owner, RTLD_DL_LINKMAP) &&
+        owner == m)
+      return p;
+  }
+  return nullptr;
+}
+
+EXPORT void* dlsym(void* handle, const char* name) noexcept {
+  if (strncmp(name, "cu", 2) == 0 || strncmp(name, "nvml", 4) == 0) {
+    if (Hook* k = hook_named(name)) {
+      /* A wrapper is handed out only when the real function exists. */
+      void* p = handle == RTLD_NEXT
+                    ? next_after(__builtin_return_address(0), name)
+                    : real_dlsym()(handle, name);
+      if (p != nullptr) {
+        void* expected = nullptr;
+        k->real.compare_exchange_strong(expected, p);
+        return k->wrapper;
+      }
+      return nullptr;
+    }
+  }
+  if (handle == RTLD_NEXT)
+    return next_after(__builtin_return_address(0), name);
+  return real_dlsym()(handle, name);
+}
+
+#define HOOK(lib, name) {#name, lib, (void*)&name, {nullptr}}
+Hook g_hooks[H_COUNT] = {
+    HOOK(LIB_CUDA, cuGetProcAddress),
+    HOOK(LIB_CUDA, cuGetProcAddress_v2),
+    HOOK(LIB_CUDA, cuMemAlloc_v2),
+    HOOK(LIB_CUDA, cuMemAllocPitch_v2),
+    HOOK(LIB_CUDA, cuMemAllocManaged),
+    HOOK(LIB_CUDA, cuMemAllocAsync),
+    HOOK(LIB_CUDA, cuMemAllocAsync_ptsz),
+    HOOK(LIB_CUDA, cuMemAllocFromPoolAsync),
+    HOOK(LIB_CUDA, cuMemAllocFromPoolAsync_ptsz),
+    HOOK(LIB_CUDA, cuMemCreate),
+    HOOK(LIB_CUDA, cuMemFree_v2),
+    HOOK(LIB_CUDA, cuMemFreeAsync),
+    HOOK(LIB_CUDA, cuMemFreeAsync_ptsz),
+    HOOK(LIB_CUDA, cuMemRelease),
+    HOOK(LIB_CUDA, cuMemGetInfo_v2),
+    HOOK(LIB_CUDA, cuDeviceTotalMem_v2),
+    HOOK(LIB_CUDA, cuLaunchKernel),
+    HOOK(LIB_CUDA, cuLaunchKernel_ptsz),
+    HOOK(LIB_CUDA, cuLaunchKernelEx),
+    HOOK(LIB_CUDA, cuLaunchKernelEx_ptsz),
+    HOOK(LIB_CUDA, cuLaunchCooperativeKernel),
+    HOOK(LIB_CUDA, cuLaunchCooperativeKernel_ptsz),
+    HOOK(LIB_CUDA, cuGraphLaunch),
+    HOOK(LIB_CUDA, cuGraphLaunch_ptsz),
+    HOOK(LIB_NVML, nvmlDeviceGetMemoryInfo),
+    HOOK(LIB_NVML, nvmlDeviceGetMemoryInfo_v2),
+};
+const size_t g_nhooks = H_COUNT;
+
+/* ------------------------------------------------------------------ */
+/* identity and statistics                                            */
+/* ------------------------------------------------------------------ */
+
+EXPORT const char* vtpu_cuda_interposer_ident(void) {
+  return "vtpu_cuda interposer 1";
+}
+
+EXPORT int vtpu_cuda_interposer_stats(vtpu_cuda_stats* out, size_t size) {
+  if (out == nullptr || size != sizeof(vtpu_cuda_stats)) return -1;
+  memset(out, 0, sizeof(*out));
+  out->launches = C.launches;
+  out->graph_launches = C.graph_launches;
+  out->gate_waits = C.gate_waits;
+  out->gate_ns = C.gate_ns;
+  out->wait_ns = C.wait_ns;
+  out->refused = C.refused;
+  out->charged_bytes = C.charged_bytes;
+  out->spilled_bytes = C.spilled_bytes;
+  out->booked_us = C.booked_us;
+  out->debited_us = C.debited_us;
+  out->busy_ticks = C.busy_ticks;
+  out->shared_ticks = C.shared_ticks;
+  out->procaddr_hooks = C.procaddr_hooks;
+  out->state = g_state.load();
+  out->meter = g_meter.load();
+  if (out->state >= 0) {
+    out->ndev = g_q.ndev;
+    out->core_pct = g_q.core_pct;
+    out->policy = g_q.policy;
+    out->priority = g_q.priority;
+    out->oversubscribe = g_q.oversubscribe;
+    out->oom_killer = g_q.oom_killer;
+    out->min_cost_us = g_q.min_cost_us;
+    memcpy(out->limits, g_q.limits, sizeof(out->limits));
+  }
+  return 0;
+}

@@ -1,0 +1,580 @@
+/* interposer_test.cc — scenarios of libvtpu_cuda.so against the mock
+ * driver (mock_cuda.cc), the port's counterpart of vtpu's
+ * native/tests/interposer_test.cc.
+ *
+ *   LD_PRELOAD=libvtpu_cuda.so LD_LIBRARY_PATH=<dir of the mocks' sonames> \
+ *     interposer_test [scenario]
+ *
+ * With a scenario name it runs that scenario and exits 0 when it holds
+ * (`killer` must die of SIGKILL instead).  Without one it runs every
+ * scenario, each in a fresh process (the quota env is read once, at the
+ * first hooked call).  This program reaches the driver API the way the CUDA
+ * runtime does: dlopen libcuda.so.1, dlsym its cuGetProcAddress_v2, and
+ * everything else through that.  tests/test_torch_interposer.py runs each
+ * scenario as its own case.
+ */
+#include <dlfcn.h>
+#include <signal.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <sys/wait.h>
+#include <time.h>
+#include <unistd.h>
+
+#include <string>
+
+#include "cuda_abi.h"
+
+using namespace vtpu_abi;
+
+#define CHECK(cond)                                                       \
+  do {                                                                    \
+    if (!(cond)) {                                                        \
+      fprintf(stderr, "CHECK failed %s:%d: %s\n", __FILE__, __LINE__,     \
+              #cond);                                                     \
+      exit(1);                                                            \
+    }                                                                     \
+  } while (0)
+
+static double mono_s() {
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return ts.tv_sec + ts.tv_nsec * 1e-9;
+}
+
+/* Mirror of the interposer's vtpu_cuda_stats. */
+struct Stats {
+  uint64_t launches, graph_launches, gate_waits, gate_ns, wait_ns, refused,
+      charged_bytes, spilled_bytes, booked_us, debited_us, busy_ticks,
+      shared_ticks, procaddr_hooks;
+  int32_t state, meter, ndev, core_pct, policy, priority, oversubscribe,
+      oom_killer;
+  uint64_t min_cost_us;
+  uint64_t limits[16];
+};
+
+static Stats stats() {
+  auto* f = (int (*)(Stats*, size_t))dlsym(RTLD_DEFAULT,
+                                           "vtpu_cuda_interposer_stats");
+  CHECK(f != nullptr);
+  Stats s;
+  CHECK(f(&s, sizeof(s)) == 0);
+  return s;
+}
+
+/* ---- the driver API, fetched as the CUDA runtime fetches it ----------- */
+
+static void* g_cuda = nullptr;
+static fn_cuGetProcAddress_v2* gpa = nullptr;
+
+static void* proc(const char* name, int version = 12080,
+                  cuuint64_t flags = CU_GET_PROC_ADDRESS_DEFAULT) {
+  void* p = nullptr;
+  CUdriverProcAddressQueryResult st = CU_GET_PROC_ADDRESS_SYMBOL_NOT_FOUND;
+  CHECK(gpa(name, &p, version, flags, &st) == CUDA_SUCCESS);
+  CHECK(st == CU_GET_PROC_ADDRESS_SUCCESS && p != nullptr);
+  return p;
+}
+
+template <class F>
+static F* mock(const char* name) {
+  F* f = (F*)dlsym(g_cuda, name);
+  CHECK(f != nullptr);
+  return f;
+}
+
+static void open_driver() {
+  g_cuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+  CHECK(g_cuda != nullptr);
+  gpa = (fn_cuGetProcAddress_v2*)dlsym(g_cuda, "cuGetProcAddress_v2");
+  CHECK(gpa != nullptr);
+  CHECK(((fn_cuInit*)proc("cuInit"))(0) == CUDA_SUCCESS);
+}
+
+static void set_device(int dev) {
+  auto* set = (CUresult(*)(CUcontext))proc("cuCtxSetCurrent");
+  CHECK(set((CUcontext)(uintptr_t)(dev + 1)) == CUDA_SUCCESS);
+}
+
+static CUdeviceptr alloc(size_t bytes, CUresult want = CUDA_SUCCESS) {
+  CUdeviceptr p = 0;
+  CHECK(((fn_cuMemAlloc_v2*)proc("cuMemAlloc", 3020))(&p, bytes) == want);
+  return p;
+}
+
+static void release(CUdeviceptr p) {
+  CHECK(((fn_cuMemFree_v2*)proc("cuMemFree", 3020))(p) == CUDA_SUCCESS);
+}
+
+static void mem_info(size_t* freeb, size_t* total) {
+  CHECK(((fn_cuMemGetInfo_v2*)proc("cuMemGetInfo", 3020))(freeb, total) ==
+        CUDA_SUCCESS);
+}
+
+static CUresult launch() {
+  auto* f = (fn_cuLaunchKernel*)proc("cuLaunchKernel");
+  return f(nullptr, 1, 1, 1, 32, 1, 1, 0, nullptr, nullptr, nullptr);
+}
+
+static void synchronize() {
+  CHECK(((CUresult(*)())proc("cuCtxSynchronize"))() == CUDA_SUCCESS);
+}
+
+static const size_t Ki = 1024, Mi = 1024 * 1024;
+
+/* ---- scenarios ------------------------------------------------------ */
+
+static int sc_mem() {
+  setenv("MOCK_CUDA_DEVICES", "2", 1);
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  setenv("VTPU_DEVICE_HBM_LIMIT_1", "2Mi", 1);
+  open_driver();
+  auto* real_allocs = mock<uint64_t(const char*)>("mockCalls");
+  set_device(0);
+  CUdeviceptr b1 = alloc(128 * Ki);
+  /* Past the 1 MiB cap: refused before the real allocator runs. */
+  uint64_t calls = real_allocs("cuMemAlloc_v2");
+  alloc(2 * Mi, CUDA_ERROR_OUT_OF_MEMORY);
+  CHECK(real_allocs("cuMemAlloc_v2") == calls);
+  CHECK(stats().refused == 1);
+  /* The same size fits device 1's 2 MiB cap. */
+  set_device(1);
+  CUdeviceptr b2 = alloc(1600 * Ki);
+  size_t total = 0;
+  CHECK(((fn_cuDeviceTotalMem_v2*)proc("cuDeviceTotalMem", 3020))(
+            &total, 1) == CUDA_SUCCESS);
+  CHECK(total == 2 * Mi);
+  release(b2);
+  set_device(0);
+  size_t freeb = 0;
+  mem_info(&freeb, &total);
+  CHECK(total == 1 * Mi && freeb == 1 * Mi - 128 * Ki);
+  release(b1);
+  CUdeviceptr b3 = alloc(900 * Ki);
+  CHECK(stats().charged_bytes == 900 * Ki);
+  release(b3);
+  /* Pitch is charged at the padded size the driver chose. */
+  CUdeviceptr p = 0;
+  size_t pitch = 0;
+  CHECK(((fn_cuMemAllocPitch_v2*)proc("cuMemAllocPitch", 3020))(
+            &p, &pitch, 1000, 100, 4) == CUDA_SUCCESS);
+  CHECK(pitch == 1024 && stats().charged_bytes == 1024 * 100);
+  release(p);
+  /* Stream-ordered, pooled and managed allocations are charged too. */
+  CUdeviceptr a = 0, q = 0, m = 0;
+  CHECK(((fn_cuMemAllocAsync*)proc("cuMemAllocAsync"))(&a, 256 * Ki,
+                                                      nullptr) ==
+        CUDA_SUCCESS);
+  CHECK(((fn_cuMemAllocFromPoolAsync*)proc("cuMemAllocFromPoolAsync"))(
+            &q, 256 * Ki, nullptr, nullptr) == CUDA_SUCCESS);
+  CHECK(((fn_cuMemAllocManaged*)proc("cuMemAllocManaged"))(
+            &m, 256 * Ki, CU_MEM_ATTACH_GLOBAL) == CUDA_SUCCESS);
+  CHECK(stats().charged_bytes == 768 * Ki);
+  CHECK(((fn_cuMemAllocAsync*)proc("cuMemAllocAsync"))(&p, 512 * Ki,
+                                                      nullptr) ==
+        CUDA_ERROR_OUT_OF_MEMORY);
+  CHECK(((fn_cuMemFreeAsync*)proc("cuMemFreeAsync"))(a, nullptr) ==
+        CUDA_SUCCESS);
+  CHECK(((fn_cuMemFreeAsync*)proc("cuMemFreeAsync"))(q, nullptr) ==
+        CUDA_SUCCESS);
+  release(m);
+  CHECK(stats().charged_bytes == 0);
+  mem_info(&freeb, &total);
+  CHECK(freeb == 1 * Mi);
+  printf("mem: per-device caps, refusals before allocation, pitch/async/"
+         "pool/managed charged and released\n");
+  return 0;
+}
+
+/* Launch-and-synchronise loop for `seconds`; returns the launches made. */
+static int busy_loop(double seconds, bool synchronise = true) {
+  int n = 0;
+  double t0 = mono_s();
+  while (mono_s() - t0 < seconds) {
+    CHECK(launch() == CUDA_SUCCESS);
+    if (synchronise) synchronize();
+    n++;
+  }
+  return n;
+}
+
+static int sc_throttle() {
+  /* Each kernel keeps the mock device busy 10 ms; the watcher sees the
+   * stream busy and books it.  At 50% FORCE the loop converges to half
+   * the card once the 400 ms burst is spent. */
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("VTPU_DEVICE_CORE_LIMIT", "50", 1);
+  setenv("VTPU_CORE_UTILIZATION_POLICY", "FORCE", 1);
+  setenv("MOCK_KERNEL_US", "10000", 1);
+  open_driver();
+  busy_loop(1.2);
+  double t0 = mono_s();
+  int n = busy_loop(1.5);
+  double duty = n * 0.010 / (mono_s() - t0);
+  Stats s = stats();
+  printf("throttle: duty %.3f at a 50%% share (%d launches x 10 ms), "
+         "%llu waits, %llu us booked, meter %d\n", duty, n,
+         (unsigned long long)s.gate_waits, (unsigned long long)s.booked_us,
+         s.meter);
+  CHECK(s.meter == 1 && s.busy_ticks > 0 && s.debited_us > 0);
+  CHECK(s.shared_ticks == 0);
+  CHECK(s.gate_waits > 0);
+  CHECK(duty > 0.30 && duty < 0.70);
+  return 0;
+}
+
+static int sc_shared_region() {
+  /* Two processes on one region at 50% FORCE, each keeping its (own) mock
+   * device busy.  While both are busy each books half of every tick, as
+   * the card would time-slice between them, so the pair's share lets
+   * each run about half the time; billing each its whole busy time would
+   * hold each to a quarter. */
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("VTPU_DEVICE_CORE_LIMIT", "50", 1);
+  setenv("VTPU_CORE_UTILIZATION_POLICY", "FORCE", 1);
+  setenv("MOCK_KERNEL_US", "10000", 1);
+  int fds[2];
+  CHECK(pipe(fds) == 0);
+  pid_t child = fork();
+  CHECK(child >= 0);
+  open_driver();
+  busy_loop(1.2);
+  double t0 = mono_s();
+  int n = busy_loop(2.0);
+  double duty[2] = {n * 0.010 / (mono_s() - t0), 0};
+  Stats s = stats();
+  if (child == 0) {
+    double mine[2] = {duty[0], (double)s.shared_ticks};
+    CHECK(write(fds[1], mine, sizeof(mine)) == (ssize_t)sizeof(mine));
+    _exit(0);
+  }
+  double other[2] = {0, 0};
+  CHECK(read(fds[0], other, sizeof(other)) == (ssize_t)sizeof(other));
+  int st = 0;
+  CHECK(waitpid(child, &st, 0) == child && WIFEXITED(st) &&
+        WEXITSTATUS(st) == 0);
+  duty[1] = other[0];
+  printf("shared_region: duties %.3f + %.3f at one 50%% share, shared "
+         "ticks %llu and %.0f\n", duty[0], duty[1],
+         (unsigned long long)s.shared_ticks, other[1]);
+  CHECK(s.shared_ticks > 0 && other[1] > 0);
+  CHECK(duty[0] > 0.2 && duty[1] > 0.2);
+  CHECK(duty[0] + duty[1] > 0.7 && duty[0] + duty[1] < 1.3);
+  return 0;
+}
+
+static int sc_sole_fast() {
+  /* DEFAULT policy: the sole process on the region runs ungated. */
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("VTPU_DEVICE_CORE_LIMIT", "50", 1);
+  setenv("MOCK_KERNEL_US", "1000", 1);
+  open_driver();
+  double t0 = mono_s();
+  for (int i = 0; i < 30; i++) {
+    CHECK(launch() == CUDA_SUCCESS);
+    synchronize();
+  }
+  double elapsed = mono_s() - t0;
+  printf("sole_fast: %.3f s for 30 x 1 ms (DEFAULT policy)\n", elapsed);
+  CHECK(elapsed < 0.12);
+  CHECK(stats().gate_waits == 0);
+  return 0;
+}
+
+static int sc_floor_zero_latency() {
+  /* Kernels the watcher never sees busy (0 µs each): the per-launch floor
+   * alone holds the 25% share. */
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("VTPU_DEVICE_CORE_LIMIT", "25", 1);
+  setenv("VTPU_CORE_UTILIZATION_POLICY", "FORCE", 1);
+  setenv("VTPU_MIN_EXEC_COST_US", "5000", 1);
+  open_driver();
+  for (int i = 0; i < 130; i++) CHECK(launch() == CUDA_SUCCESS);
+  double t0 = mono_s();
+  int n = busy_loop(1.0, false);
+  double duty = n * 0.005 / (mono_s() - t0);
+  printf("floor_zero_latency: duty %.3f (%d launches x 5 ms floor)\n", duty,
+         n);
+  CHECK(duty > 0.15 && duty < 0.40);
+  return 0;
+}
+
+static int sc_spill() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  setenv("VTPU_OVERSUBSCRIBE", "true", 1);
+  open_driver();
+  CUdeviceptr big = alloc(2 * Mi);
+  CHECK(mock<int(CUdeviceptr)>("mockIsManaged")(big));
+  Stats s = stats();
+  CHECK(s.spilled_bytes == 2 * Mi && s.charged_bytes == 0);
+  size_t freeb = 0, total = 0;
+  mem_info(&freeb, &total);
+  CHECK(freeb == 1 * Mi && total == 1 * Mi);
+  CUdeviceptr small = alloc(512 * Ki);
+  CHECK(!mock<int(CUdeviceptr)>("mockIsManaged")(small));
+  release(big);
+  release(small);
+  s = stats();
+  CHECK(s.spilled_bytes == 0 && s.charged_bytes == 0);
+  printf("spill: 2 MiB past a 1 MiB cap allocated managed, uncharged\n");
+  return 0;
+}
+
+static int sc_killer() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  setenv("VTPU_ACTIVE_OOM_KILLER", "true", 1);
+  open_driver();
+  alloc(2 * Mi, CUDA_ERROR_OUT_OF_MEMORY);
+  fprintf(stderr, "killer did not fire\n");
+  return 1;
+}
+
+static int sc_procaddr() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  open_driver();
+  auto* real = mock<void*(const char*)>("mockRealAddress");
+  /* A base name at a version resolves to the versioned function, and its
+   * wrapper comes back. */
+  void* p = proc("cuMemAlloc", 3020);
+  CHECK(p == dlsym(RTLD_DEFAULT, "cuMemAlloc_v2"));
+  CHECK(p != real("cuMemAlloc_v2"));
+  /* Before 3.2 the same base name is the unhooked 32-bit cuMemAlloc. */
+  CHECK(proc("cuMemAlloc", 2000) == real("cuMemAlloc"));
+  /* Per-thread default stream variants get their own wrappers. */
+  void* ptsz = proc("cuLaunchKernel", 12080,
+                    CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM);
+  CHECK(ptsz == dlsym(RTLD_DEFAULT, "cuLaunchKernel_ptsz"));
+  CHECK(ptsz != proc("cuLaunchKernel"));
+  uint64_t before = stats().launches;
+  CHECK(((fn_cuLaunchKernel*)ptsz)(nullptr, 1, 1, 1, 1, 1, 1, 0, nullptr,
+                                   nullptr, nullptr) == CUDA_SUCCESS);
+  CHECK(stats().launches == before + 1);
+  CHECK(mock<uint64_t(const char*)>("mockCalls")("cuLaunchKernel_ptsz") == 1);
+  /* cuGetProcAddress itself comes back wrapped, at both versions. */
+  CHECK(proc("cuGetProcAddress", 12000) ==
+        dlsym(RTLD_DEFAULT, "cuGetProcAddress_v2"));
+  CHECK(proc("cuGetProcAddress", 11030) ==
+        dlsym(RTLD_DEFAULT, "cuGetProcAddress"));
+  /* An unhooked entry point comes back untouched. */
+  CHECK(proc("cuCtxSetCurrent") == real("cuCtxSetCurrent"));
+  CHECK(proc("cuCtxSynchronize") == real("cuCtxSynchronize"));
+  /* An unknown name fails as the driver says. */
+  void* none = nullptr;
+  CUdriverProcAddressQueryResult st = CU_GET_PROC_ADDRESS_SUCCESS;
+  CHECK(gpa("cuNoSuchFunction", &none, 12080, 0, &st) ==
+            CUDA_ERROR_NOT_FOUND &&
+        none == nullptr && st == CU_GET_PROC_ADDRESS_SYMBOL_NOT_FOUND);
+  CHECK(stats().procaddr_hooks >= 5);
+  printf("procaddr: versioned, _ptsz and self lookups wrapped; unhooked "
+         "and legacy pointers untouched\n");
+  return 0;
+}
+
+static int sc_meminfo_nvml() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  open_driver();
+  CUdeviceptr p = alloc(256 * Ki);
+  void* nvml = dlopen("libnvidia-ml.so.1", RTLD_NOW | RTLD_LOCAL);
+  CHECK(nvml != nullptr);
+  auto* init = (fn_nvmlInit_v2*)dlsym(nvml, "nvmlInit_v2");
+  auto* by_index = (fn_nvmlDeviceGetHandleByIndex_v2*)dlsym(
+      nvml, "nvmlDeviceGetHandleByIndex_v2");
+  auto* info = (fn_nvmlDeviceGetMemoryInfo*)dlsym(nvml,
+                                                  "nvmlDeviceGetMemoryInfo");
+  auto* info2 = (fn_nvmlDeviceGetMemoryInfo_v2*)dlsym(
+      nvml, "nvmlDeviceGetMemoryInfo_v2");
+  CHECK(init && by_index && info && info2);
+  CHECK(info == dlsym(RTLD_DEFAULT, "nvmlDeviceGetMemoryInfo"));
+  CHECK(init() == NVML_SUCCESS);
+  nvmlDevice_t dev = nullptr;
+  CHECK(by_index(0, &dev) == NVML_SUCCESS);
+  nvmlMemory_t m;
+  CHECK(info(dev, &m) == NVML_SUCCESS);
+  CHECK(m.total == 1 * Mi && m.used == 256 * Ki && m.free == 768 * Ki);
+  nvmlMemory_v2_t m2;
+  memset(&m2, 0, sizeof(m2));
+  m2.version = (unsigned int)(sizeof(m2) | (2 << 24));
+  CHECK(info2(dev, &m2) == NVML_SUCCESS);
+  CHECK(m2.total == 1 * Mi && m2.used == 256 * Ki && m2.free == 768 * Ki &&
+        m2.reserved == 0);
+  release(p);
+  CHECK(info(dev, &m) == NVML_SUCCESS && m.used == 0 && m.free == 1 * Mi);
+  printf("meminfo_nvml: NVML reports the 1 MiB cap and the region's use\n");
+  return 0;
+}
+
+static int sc_vmm() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  open_driver();
+  auto* create = (fn_cuMemCreate*)proc("cuMemCreate");
+  auto* rel = (fn_cuMemRelease*)proc("cuMemRelease");
+  CUmemAllocationProp dev_prop;
+  memset(&dev_prop, 0, sizeof(dev_prop));
+  dev_prop.type = CU_MEM_ALLOCATION_TYPE_PINNED;
+  dev_prop.location.type = CU_MEM_LOCATION_TYPE_DEVICE;
+  dev_prop.location.id = 0;
+  CUmemAllocationProp host_prop = dev_prop;
+  host_prop.location.type = (CUmemLocationType)2; /* HOST: uncharged */
+  CUmemGenericAllocationHandle a = 0, b = 0, h = 0;
+  CHECK(create(&a, 512 * Ki, &dev_prop, 0) == CUDA_SUCCESS);
+  CHECK(create(&b, 768 * Ki, &dev_prop, 0) == CUDA_ERROR_OUT_OF_MEMORY);
+  CHECK(create(&h, 2 * Mi, &host_prop, 0) == CUDA_SUCCESS);
+  CHECK(stats().charged_bytes == 512 * Ki);
+  CHECK(rel(a) == CUDA_SUCCESS);
+  CHECK(create(&b, 768 * Ki, &dev_prop, 0) == CUDA_SUCCESS);
+  CHECK(rel(b) == CUDA_SUCCESS && rel(h) == CUDA_SUCCESS);
+  CHECK(stats().charged_bytes == 0);
+  printf("vmm: cuMemCreate charged per device handle, released by "
+         "cuMemRelease\n");
+  return 0;
+}
+
+/* A 20% FORCE share with a 100 ms floor per launch: the 400 ms burst pays
+ * four launches, the fifth waits for the bucket. */
+static void floor_env() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  setenv("VTPU_DEVICE_CORE_LIMIT", "20", 1);
+  setenv("VTPU_CORE_UTILIZATION_POLICY", "FORCE", 1);
+  setenv("VTPU_MIN_EXEC_COST_US", "100000", 1);
+}
+
+static int sc_launch_ex() {
+  floor_env();
+  open_driver();
+  auto* ex = (fn_cuLaunchKernelEx*)proc("cuLaunchKernelEx");
+  auto* ex_ptsz = (fn_cuLaunchKernelEx*)proc(
+      "cuLaunchKernelEx", 12080, CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM);
+  CUlaunchConfig cfg;
+  memset(&cfg, 0, sizeof(cfg));
+  cfg.gridDimX = cfg.gridDimY = cfg.gridDimZ = 1;
+  cfg.blockDimX = 128;
+  cfg.blockDimY = cfg.blockDimZ = 1;
+  double t0 = mono_s();
+  for (int i = 0; i < 5; i++)
+    CHECK((i % 2 ? ex_ptsz : ex)(&cfg, nullptr, nullptr, nullptr) ==
+          CUDA_SUCCESS);
+  double elapsed = mono_s() - t0;
+  Stats s = stats();
+  auto* calls = mock<uint64_t(const char*)>("mockCalls");
+  printf("launch_ex: 5 launches in %.3f s, %llu waited\n", elapsed,
+         (unsigned long long)s.gate_waits);
+  CHECK(s.launches == 5 && s.gate_waits >= 1 && elapsed > 0.08);
+  CHECK(calls("cuLaunchKernelEx") == 3 && calls("cuLaunchKernelEx_ptsz") == 2);
+  return 0;
+}
+
+static int sc_graph() {
+  floor_env();
+  open_driver();
+  auto* graph = (fn_cuGraphLaunch*)proc("cuGraphLaunch");
+  double t0 = mono_s();
+  for (int i = 0; i < 5; i++)
+    CHECK(graph(nullptr, nullptr) == CUDA_SUCCESS);
+  double elapsed = mono_s() - t0;
+  Stats s = stats();
+  printf("graph: 5 graph launches in %.3f s, %llu waited\n", elapsed,
+         (unsigned long long)s.gate_waits);
+  CHECK(s.graph_launches == 5 && s.gate_waits >= 1 && elapsed > 0.08);
+  return 0;
+}
+
+static int sc_failclosed() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  setenv("VTPU_DEVICE_MEMORY_SHARED_CACHE",
+         "/nonexistent-vtpu-dir/region.cache", 1);
+  open_driver();
+  auto* calls = mock<uint64_t(const char*)>("mockCalls");
+  alloc(4 * Ki, CUDA_ERROR_NOT_PERMITTED);
+  CHECK(calls("cuMemAlloc_v2") == 0);
+  CHECK(launch() == CUDA_ERROR_NOT_PERMITTED);
+  CHECK(calls("cuLaunchKernel") == 0);
+  CHECK(stats().state == 2);
+  printf("failclosed: a quota with no region refuses every allocation and "
+         "launch\n");
+  return 0;
+}
+
+static int sc_forward_other() {
+  typedef pid_t getpid_fn(void);
+  void* libc_getpid = dlvsym(RTLD_DEFAULT, "getpid", "GLIBC_2.2.5");
+  CHECK(libc_getpid != nullptr);
+  CHECK(dlsym(RTLD_DEFAULT, "getpid") == libc_getpid);
+  CHECK(dlsym(RTLD_NEXT, "getpid") == libc_getpid);
+  void* libc = dlopen("libc.so.6", RTLD_LAZY | RTLD_NOLOAD);
+  CHECK(libc != nullptr && dlsym(libc, "getpid") == libc_getpid);
+  CHECK(((getpid_fn*)dlsym(RTLD_NEXT, "getpid"))() == getpid());
+  CHECK(dlsym(RTLD_DEFAULT, "vtpu_no_such_symbol") == nullptr);
+  /* The next dlsym after this program's is the interposer's own. */
+  Dl_info info;
+  CHECK(dladdr(dlsym(RTLD_NEXT, "dlsym"), &info) && info.dli_fname &&
+        strstr(info.dli_fname, "vtpu_cuda") != nullptr);
+  printf("forward_other: non-CUDA names resolve as without the "
+         "interposer\n");
+  return 0;
+}
+
+struct Scenario {
+  const char* name;
+  int (*fn)();
+  bool expect_sigkill;
+};
+
+static const Scenario kScenarios[] = {
+    {"mem", sc_mem, false},
+    {"throttle", sc_throttle, false},
+    {"shared_region", sc_shared_region, false},
+    {"sole_fast", sc_sole_fast, false},
+    {"floor_zero_latency", sc_floor_zero_latency, false},
+    {"spill", sc_spill, false},
+    {"killer", sc_killer, true},
+    {"procaddr", sc_procaddr, false},
+    {"meminfo_nvml", sc_meminfo_nvml, false},
+    {"vmm", sc_vmm, false},
+    {"launch_ex", sc_launch_ex, false},
+    {"graph", sc_graph, false},
+    {"failclosed", sc_failclosed, false},
+    {"forward_other", sc_forward_other, false},
+};
+
+int main(int argc, char** argv) {
+  if (dlsym(RTLD_DEFAULT, "vtpu_cuda_interposer_ident") == nullptr) {
+    fprintf(stderr, "libvtpu_cuda.so is not preloaded\n");
+    return 2;
+  }
+  std::string region = "/tmp/vtpu_cuda_test_" + std::to_string(getpid()) +
+                       ".cache";
+  if (!getenv("VTPU_DEVICE_MEMORY_SHARED_CACHE"))
+    setenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", region.c_str(), 1);
+  if (argc > 1) {
+    for (const Scenario& s : kScenarios) {
+      if (strcmp(s.name, argv[1]) != 0) continue;
+      int rc = s.fn();
+      unlink(region.c_str());
+      if (rc == 0) printf("scenario %s: OK\n", s.name);
+      return rc;
+    }
+    fprintf(stderr, "unknown scenario %s\n", argv[1]);
+    return 2;
+  }
+  int failures = 0;
+  for (const Scenario& s : kScenarios) {
+    pid_t pid = fork();
+    if (pid == 0) {
+      unsetenv("VTPU_DEVICE_MEMORY_SHARED_CACHE");
+      execl("/proc/self/exe", argv[0], s.name, (char*)nullptr);
+      _exit(127);
+    }
+    int st = 0;
+    waitpid(pid, &st, 0);
+    bool ok = s.expect_sigkill ? WIFSIGNALED(st) && WTERMSIG(st) == SIGKILL
+                               : WIFEXITED(st) && WEXITSTATUS(st) == 0;
+    if (!ok) {
+      fprintf(stderr, "scenario %s FAILED (status %d)\n", s.name, st);
+      failures++;
+    }
+  }
+  unlink(region.c_str());
+  if (failures == 0) printf("interposer_test: ALL OK\n");
+  return failures == 0 ? 0 : 1;
+}

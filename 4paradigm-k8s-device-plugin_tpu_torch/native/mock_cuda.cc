@@ -1,0 +1,448 @@
+/* mock_cuda.cc — a stand-in for the CUDA driver and NVML, so the
+ * interposer runs and is tested on a machine with no card.
+ *
+ * Built twice (ops/_build.py):
+ *   -DMOCK_LIB_CUDA  libmockcuda, soname libcuda.so.1
+ *   -DMOCK_LIB_NVML  libmocknvml, soname libnvidia-ml.so.1
+ * with -Wl,-Bsymbolic, so the mock's own references (the table its
+ * cuGetProcAddress answers from) bind to its own functions, as the real
+ * driver's do, and never to the interposer's exports of the same names.
+ *
+ * The CUDA mock keeps a device timeline: each launch queues MOCK_KERNEL_US
+ * of work (default 0) behind the device's earlier work, cuCtxSynchronize
+ * sleeps until the device is idle, and cuStreamQuery reports
+ * CUDA_ERROR_NOT_READY until then.  So the busy time the interposer's
+ * watcher books is scripted by MOCK_KERNEL_US and by when the program
+ * launches.
+ *
+ * Also set by env: MOCK_CUDA_DEVICES (default 1), MOCK_CUDA_MEM bytes per
+ * device (default 80 GiB).  The current device is a thread's context:
+ * cuCtxSetCurrent((CUcontext)(uintptr_t)(ordinal + 1)).
+ *
+ * Mock-only helpers (no driver has them): mockRealAddress(name) — the
+ * mock's own function of an exported name; mockCalls(name) — calls into
+ * it so far; mockIsManaged(ptr); mockUsedBytes(dev), which the NVML mock
+ * reports.
+ */
+#include <dlfcn.h>
+#include <stdlib.h>
+#include <string.h>
+#include <time.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <atomic>
+#include <map>
+#include <mutex>
+#include <string>
+
+#include "cuda_abi.h"
+
+using namespace vtpu_abi;
+
+#define EXPORT extern "C" __attribute__((visibility("default")))
+
+static uint64_t wall_us() {
+  struct timespec ts;
+  clock_gettime(CLOCK_REALTIME, &ts);
+  return (uint64_t)ts.tv_sec * 1000000ull + (uint64_t)ts.tv_nsec / 1000ull;
+}
+
+static uint64_t env_u64(const char* name, uint64_t def) {
+  const char* s = getenv(name);
+  return s && *s ? strtoull(s, nullptr, 10) : def;
+}
+
+#ifdef MOCK_LIB_CUDA
+
+/* ---- state -------------------------------------------------------------- */
+
+struct Alloc {
+  int dev;
+  uint64_t bytes;
+  bool managed;
+};
+
+static std::mutex g_mu;
+static std::map<uint64_t, Alloc> g_allocs;        /* pointers and handles */
+static uint64_t g_next = 0x100000000ull;
+static uint64_t g_busy_until[16];
+static std::map<std::string, uint64_t> g_calls;
+static thread_local int t_dev = 0;
+
+static int ndev() { return (int)std::min<uint64_t>(env_u64("MOCK_CUDA_DEVICES", 1), 16); }
+static uint64_t dev_mem() { return env_u64("MOCK_CUDA_MEM", 80ull << 30); }
+
+static void called(const char* name) {
+  std::lock_guard<std::mutex> lk(g_mu);
+  g_calls[name]++;
+}
+
+static uint64_t used_on(int dev) {
+  uint64_t u = 0;
+  for (auto& kv : g_allocs)
+    if (kv.second.dev == dev && !kv.second.managed) u += kv.second.bytes;
+  return u;
+}
+
+static CUresult do_alloc(const char* name, unsigned long long* out,
+                         size_t bytes,
+                         int dev, bool managed) {
+  called(name);
+  if (out == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  std::lock_guard<std::mutex> lk(g_mu);
+  if (!managed && used_on(dev) + bytes > dev_mem())
+    return CUDA_ERROR_OUT_OF_MEMORY;
+  *out = g_next;
+  g_next += (bytes + 0xffff) & ~0xffffull;
+  g_allocs[*out] = Alloc{dev, bytes, managed};
+  return CUDA_SUCCESS;
+}
+
+static CUresult do_free(const char* name, uint64_t key) {
+  called(name);
+  std::lock_guard<std::mutex> lk(g_mu);
+  return g_allocs.erase(key) ? CUDA_SUCCESS : CUDA_ERROR_INVALID_VALUE;
+}
+
+static CUresult do_launch(const char* name) {
+  called(name);
+  uint64_t k = env_u64("MOCK_KERNEL_US", 0);
+  if (k == 0) return CUDA_SUCCESS;
+  std::lock_guard<std::mutex> lk(g_mu);
+  g_busy_until[t_dev] = std::max(wall_us(), g_busy_until[t_dev]) + k;
+  return CUDA_SUCCESS;
+}
+
+/* ---- the driver API ----------------------------------------------------- */
+
+EXPORT CUresult cuInit(unsigned int) {
+  called("cuInit");
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuDeviceGetCount(int* count) {
+  called("cuDeviceGetCount");
+  *count = ndev();
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuCtxGetDevice(CUdevice* device) {
+  called("cuCtxGetDevice");
+  *device = t_dev;
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuCtxGetCurrent(CUcontext* pctx) {
+  called("cuCtxGetCurrent");
+  *pctx = (CUcontext)(uintptr_t)(t_dev + 1);
+  return CUDA_SUCCESS;
+}
+
+/* Unhooked by the interposer. */
+EXPORT CUresult cuCtxSetCurrent(CUcontext ctx) {
+  called("cuCtxSetCurrent");
+  int d = (int)(uintptr_t)ctx - 1;
+  if (d < 0 || d >= ndev()) return CUDA_ERROR_INVALID_CONTEXT;
+  t_dev = d;
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuCtxSynchronize(void) {
+  called("cuCtxSynchronize");
+  uint64_t until;
+  {
+    std::lock_guard<std::mutex> lk(g_mu);
+    until = g_busy_until[t_dev];
+  }
+  uint64_t now = wall_us();
+  if (until > now) usleep((useconds_t)(until - now));
+  return CUDA_SUCCESS;
+}
+
+/* The current context's device has queued work (streams are not told
+ * apart). */
+EXPORT CUresult cuStreamQuery(CUstream) {
+  called("cuStreamQuery");
+  std::lock_guard<std::mutex> lk(g_mu);
+  return g_busy_until[t_dev] > wall_us() ? CUDA_ERROR_NOT_READY
+                                         : CUDA_SUCCESS;
+}
+
+/* cuMemAlloc of CUDA < 3.2: 32-bit sizes; never hooked. */
+EXPORT CUresult cuMemAlloc(unsigned int* dptr, unsigned int bytesize) {
+  unsigned long long p = 0;
+  CUresult r = do_alloc("cuMemAlloc", &p, bytesize, t_dev, false);
+  if (r == CUDA_SUCCESS) *dptr = (unsigned int)p;
+  return r;
+}
+
+EXPORT CUresult cuMemAlloc_v2(CUdeviceptr* dptr, size_t bytesize) {
+  return do_alloc("cuMemAlloc_v2", dptr, bytesize, t_dev, false);
+}
+
+EXPORT CUresult cuMemAllocPitch_v2(CUdeviceptr* dptr, size_t* pPitch,
+                                   size_t WidthInBytes, size_t Height,
+                                   unsigned int) {
+  size_t pitch = (WidthInBytes + 511) & ~(size_t)511;
+  CUresult r = do_alloc("cuMemAllocPitch_v2", dptr, pitch * Height, t_dev,
+                        false);
+  if (r == CUDA_SUCCESS) *pPitch = pitch;
+  return r;
+}
+
+EXPORT CUresult cuMemAllocManaged(CUdeviceptr* dptr, size_t bytesize,
+                                  unsigned int) {
+  return do_alloc("cuMemAllocManaged", dptr, bytesize, t_dev, true);
+}
+
+EXPORT CUresult cuMemAllocAsync(CUdeviceptr* dptr, size_t bytesize,
+                                CUstream) {
+  return do_alloc("cuMemAllocAsync", dptr, bytesize, t_dev, false);
+}
+EXPORT CUresult cuMemAllocAsync_ptsz(CUdeviceptr* dptr, size_t bytesize,
+                                     CUstream) {
+  return do_alloc("cuMemAllocAsync_ptsz", dptr, bytesize, t_dev, false);
+}
+EXPORT CUresult cuMemAllocFromPoolAsync(CUdeviceptr* dptr, size_t bytesize,
+                                        CUmemoryPool, CUstream) {
+  return do_alloc("cuMemAllocFromPoolAsync", dptr, bytesize, t_dev, false);
+}
+EXPORT CUresult cuMemAllocFromPoolAsync_ptsz(CUdeviceptr* dptr,
+                                             size_t bytesize, CUmemoryPool,
+                                             CUstream) {
+  return do_alloc("cuMemAllocFromPoolAsync_ptsz", dptr, bytesize, t_dev,
+                  false);
+}
+
+EXPORT CUresult cuMemCreate(CUmemGenericAllocationHandle* handle,
+                            size_t size, const CUmemAllocationProp* prop,
+                            unsigned long long) {
+  if (prop == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  bool device = prop->location.type == CU_MEM_LOCATION_TYPE_DEVICE;
+  return do_alloc("cuMemCreate", handle, size,
+                  device ? prop->location.id : 0, !device);
+}
+
+EXPORT CUresult cuMemFree_v2(CUdeviceptr dptr) {
+  return do_free("cuMemFree_v2", dptr);
+}
+EXPORT CUresult cuMemFreeAsync(CUdeviceptr dptr, CUstream) {
+  return do_free("cuMemFreeAsync", dptr);
+}
+EXPORT CUresult cuMemFreeAsync_ptsz(CUdeviceptr dptr, CUstream) {
+  return do_free("cuMemFreeAsync_ptsz", dptr);
+}
+EXPORT CUresult cuMemRelease(CUmemGenericAllocationHandle handle) {
+  return do_free("cuMemRelease", handle);
+}
+
+EXPORT CUresult cuMemGetInfo_v2(size_t* free, size_t* total) {
+  called("cuMemGetInfo_v2");
+  std::lock_guard<std::mutex> lk(g_mu);
+  *total = dev_mem();
+  *free = dev_mem() - used_on(t_dev);
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuDeviceTotalMem_v2(size_t* bytes, CUdevice dev) {
+  called("cuDeviceTotalMem_v2");
+  if (dev < 0 || dev >= ndev()) return CUDA_ERROR_INVALID_VALUE;
+  *bytes = dev_mem();
+  return CUDA_SUCCESS;
+}
+
+#define LAUNCH_PARAMS                                                    \
+  CUfunction, unsigned int, unsigned int, unsigned int, unsigned int,    \
+      unsigned int, unsigned int, unsigned int, CUstream
+EXPORT CUresult cuLaunchKernel(LAUNCH_PARAMS, void**, void**) {
+  return do_launch("cuLaunchKernel");
+}
+EXPORT CUresult cuLaunchKernel_ptsz(LAUNCH_PARAMS, void**, void**) {
+  return do_launch("cuLaunchKernel_ptsz");
+}
+EXPORT CUresult cuLaunchCooperativeKernel(LAUNCH_PARAMS, void**) {
+  return do_launch("cuLaunchCooperativeKernel");
+}
+EXPORT CUresult cuLaunchCooperativeKernel_ptsz(LAUNCH_PARAMS, void**) {
+  return do_launch("cuLaunchCooperativeKernel_ptsz");
+}
+EXPORT CUresult cuLaunchKernelEx(const CUlaunchConfig*, CUfunction, void**,
+                                 void**) {
+  return do_launch("cuLaunchKernelEx");
+}
+EXPORT CUresult cuLaunchKernelEx_ptsz(const CUlaunchConfig*, CUfunction,
+                                      void**, void**) {
+  return do_launch("cuLaunchKernelEx_ptsz");
+}
+EXPORT CUresult cuGraphLaunch(CUgraphExec, CUstream) {
+  return do_launch("cuGraphLaunch");
+}
+EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec, CUstream) {
+  return do_launch("cuGraphLaunch_ptsz");
+}
+
+/* ---- cuGetProcAddress --------------------------------------------------- */
+
+/* Each base name: from `since` on it resolves to `name` (else to the
+ * previous row of the same base), and to `ptsz` under the per-thread
+ * default stream flag where the driver has such a variant. */
+struct Proc {
+  const char* base;
+  int since;
+  const char* name;
+  void* fn;
+  const char* ptsz_name;
+  void* ptsz;
+};
+EXPORT CUresult cuGetProcAddress(const char*, void**, int, cuuint64_t);
+EXPORT CUresult cuGetProcAddress_v2(const char*, void**, int, cuuint64_t,
+                                    CUdriverProcAddressQueryResult*);
+#define P(base, since, fn) {#base, since, #fn, (void*)&fn, nullptr, nullptr}
+#define PZ(base, since, fn) \
+  {#base, since, #fn, (void*)&fn, #fn "_ptsz", (void*)&fn##_ptsz}
+static const Proc kProcs[] = {
+    P(cuInit, 2000, cuInit),
+    P(cuDeviceGetCount, 2000, cuDeviceGetCount),
+    P(cuCtxGetDevice, 2000, cuCtxGetDevice),
+    P(cuCtxGetCurrent, 4000, cuCtxGetCurrent),
+    P(cuCtxSetCurrent, 4000, cuCtxSetCurrent),
+    P(cuStreamQuery, 2000, cuStreamQuery),
+    P(cuCtxSynchronize, 2000, cuCtxSynchronize),
+    P(cuGetProcAddress, 11030, cuGetProcAddress),
+    P(cuGetProcAddress, 12000, cuGetProcAddress_v2),
+    P(cuMemAlloc, 2000, cuMemAlloc),
+    P(cuMemAlloc, 3020, cuMemAlloc_v2),
+    P(cuMemAllocPitch, 3020, cuMemAllocPitch_v2),
+    P(cuMemAllocManaged, 6000, cuMemAllocManaged),
+    PZ(cuMemAllocAsync, 11020, cuMemAllocAsync),
+    PZ(cuMemAllocFromPoolAsync, 11020, cuMemAllocFromPoolAsync),
+    P(cuMemCreate, 10020, cuMemCreate),
+    P(cuMemFree, 3020, cuMemFree_v2),
+    PZ(cuMemFreeAsync, 11020, cuMemFreeAsync),
+    P(cuMemRelease, 10020, cuMemRelease),
+    P(cuMemGetInfo, 3020, cuMemGetInfo_v2),
+    P(cuDeviceTotalMem, 3020, cuDeviceTotalMem_v2),
+    PZ(cuLaunchKernel, 4000, cuLaunchKernel),
+    PZ(cuLaunchKernelEx, 11060, cuLaunchKernelEx),
+    PZ(cuLaunchCooperativeKernel, 9000, cuLaunchCooperativeKernel),
+    PZ(cuGraphLaunch, 10000, cuGraphLaunch),
+};
+
+EXPORT CUresult cuGetProcAddress_v2(const char* symbol, void** pfn,
+                                    int cudaVersion, cuuint64_t flags,
+                                    CUdriverProcAddressQueryResult* status) {
+  called("cuGetProcAddress_v2");
+  const Proc* best = nullptr;
+  bool known = false;
+  for (const Proc& p : kProcs) {
+    if (strcmp(p.base, symbol) != 0) continue;
+    known = true;
+    if (p.since <= cudaVersion && (!best || p.since > best->since)) best = &p;
+  }
+  if (!best) {
+    *pfn = nullptr;
+    if (status)
+      *status = known ? CU_GET_PROC_ADDRESS_VERSION_NOT_SUFFICIENT
+                      : CU_GET_PROC_ADDRESS_SYMBOL_NOT_FOUND;
+    return CUDA_ERROR_NOT_FOUND;
+  }
+  bool per_thread = flags & CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM;
+  *pfn = per_thread && best->ptsz ? best->ptsz : best->fn;
+  if (status) *status = CU_GET_PROC_ADDRESS_SUCCESS;
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuGetProcAddress(const char* symbol, void** pfn,
+                                 int cudaVersion, cuuint64_t flags) {
+  return cuGetProcAddress_v2(symbol, pfn, cudaVersion, flags, nullptr);
+}
+
+/* ---- mock-only helpers -------------------------------------------------- */
+
+EXPORT void* mockRealAddress(const char* name) {
+  for (const Proc& p : kProcs) {
+    if (strcmp(p.name, name) == 0) return p.fn;
+    if (p.ptsz_name && strcmp(p.ptsz_name, name) == 0) return p.ptsz;
+  }
+  return nullptr;
+}
+
+EXPORT uint64_t mockCalls(const char* name) {
+  std::lock_guard<std::mutex> lk(g_mu);
+  auto it = g_calls.find(name);
+  return it == g_calls.end() ? 0 : it->second;
+}
+
+EXPORT int mockIsManaged(CUdeviceptr p) {
+  std::lock_guard<std::mutex> lk(g_mu);
+  auto it = g_allocs.find(p);
+  return it != g_allocs.end() && it->second.managed;
+}
+
+EXPORT uint64_t mockUsedBytes(int dev) {
+  std::lock_guard<std::mutex> lk(g_mu);
+  return used_on(dev);
+}
+
+#endif /* MOCK_LIB_CUDA */
+
+#ifdef MOCK_LIB_NVML
+
+/* The CUDA mock's timeline and ledger, looked up in libcuda.so.1. */
+template <class F>
+static F* cuda_mock(const char* name) {
+  void* h = dlopen("libcuda.so.1", RTLD_LAZY | RTLD_NOLOAD);
+  F* f = h ? (F*)dlsym(h, name) : nullptr;
+  if (h) dlclose(h);
+  return f;
+}
+
+static unsigned int ndev() {
+  return (unsigned int)std::min<uint64_t>(env_u64("MOCK_CUDA_DEVICES", 1),
+                                          16);
+}
+
+EXPORT nvmlReturn_t nvmlInit_v2(void) { return NVML_SUCCESS; }
+EXPORT nvmlReturn_t nvmlShutdown(void) { return NVML_SUCCESS; }
+
+EXPORT nvmlReturn_t nvmlDeviceGetHandleByIndex_v2(unsigned int index,
+                                                  nvmlDevice_t* device) {
+  if (index >= ndev()) return NVML_ERROR_INVALID_ARGUMENT;
+  *device = (nvmlDevice_t)(uintptr_t)(index + 1);
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetIndex(nvmlDevice_t device,
+                                       unsigned int* index) {
+  unsigned int i = (unsigned int)(uintptr_t)device - 1;
+  if (i >= ndev()) return NVML_ERROR_INVALID_ARGUMENT;
+  *index = i;
+  return NVML_SUCCESS;
+}
+
+static nvmlReturn_t memory(nvmlDevice_t device, unsigned long long* total,
+                           unsigned long long* free,
+                           unsigned long long* used) {
+  unsigned int i = 0;
+  if (nvmlDeviceGetIndex(device, &i) != NVML_SUCCESS)
+    return NVML_ERROR_INVALID_ARGUMENT;
+  auto* used_of = cuda_mock<uint64_t(int)>("mockUsedBytes");
+  *total = env_u64("MOCK_CUDA_MEM", 80ull << 30);
+  *used = used_of ? used_of((int)i) : 0;
+  *free = *total - *used;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetMemoryInfo(nvmlDevice_t device,
+                                            nvmlMemory_t* m) {
+  return memory(device, &m->total, &m->free, &m->used);
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetMemoryInfo_v2(nvmlDevice_t device,
+                                               nvmlMemory_v2_t* m) {
+  m->reserved = 0;
+  return memory(device, &m->total, &m->free, &m->used);
+}
+
+#endif /* MOCK_LIB_NVML */

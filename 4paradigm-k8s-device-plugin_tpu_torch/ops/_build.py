@@ -1,4 +1,5 @@
-"""Builds the port's native libraries from the repo's sources at first use.
+"""Builds the port's native libraries and programs from the repo's sources
+at first use.
 
 Shared libraries with a plain C interface, loaded through ctypes:
 
@@ -10,6 +11,16 @@ Shared libraries with a plain C interface, loaded through ctypes:
   ``native/Makefile``.  The region is the cross-process contract that
   ``vtpu``'s tools read too, so the port never keeps a copy of its source.
 
+Host code, compiled by ``g++`` from the port's ``native/`` (``HOST``):
+
+- ``vtpu_cuda``: the LD_PRELOAD interposer (``native/interposer.cc``, with
+  the same unchanged ``vtpu_core.cc`` compiled in, every symbol hidden but
+  its hooks), loaded into a tenant by ``shim/interposer.py``;
+- ``mockcuda`` and ``mocknvml``: ``native/mock_cuda.cc`` built as a fake
+  ``libcuda.so.1`` and a fake ``libnvidia-ml.so.1`` (their sonames), for
+  the CPU tests;
+- ``interposer_test``: the interposer's scenario driver, an executable.
+
 Outputs go to ``build/vtpu_torch/`` at the repo root (listed in
 ``.gitignore``), named by a hash of the sources and the command, so an
 edited source rebuilds and an unchanged one is reused.  Each output is
@@ -19,7 +30,8 @@ failed build raises; nothing is prebuilt or committed.
 
 ``build_all()`` starts one compiler per library, all at once, and waits
 for them: a cold start costs the slowest build, not the sum.
-``KERNELS`` names the CUDA libraries.
+``KERNELS`` names the CUDA libraries.  ``abi_check()`` compiles
+``native/abi_check.cc`` against the CUDA toolkit's headers.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(_PKG)
 BUILD_DIR = os.path.join(REPO, "build", "vtpu_torch")
 CSRC = os.path.join(_PKG, "ops", "csrc")
+NATIVE = os.path.join(_PKG, "native")
 VTPUCORE_SRC = os.path.join(REPO, "native", "vtpucore")
 
 _lock = threading.Lock()
@@ -53,6 +66,14 @@ def _nvcc() -> str:
 
 KERNELS = tuple(sorted(f[:-3] for f in os.listdir(CSRC)
                      if f.endswith(".cu")))
+HOST = ("vtpucore", "vtpu_cuda", "mockcuda", "mocknvml", "interposer_test")
+_GXX = ["g++", "-O2", "-fPIC", "-std=c++17"]
+_MOCKS = {"mockcuda": ("-DMOCK_LIB_CUDA", "libcuda.so.1"),
+          "mocknvml": ("-DMOCK_LIB_NVML", "libnvidia-ml.so.1")}
+
+
+def _native(*names: str) -> List[str]:
+    return [os.path.join(NATIVE, n) for n in names]
 
 
 def _headers() -> List[str]:
@@ -67,18 +88,36 @@ def _recipe(name: str, out: str) -> List[str]:
                 "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
                 "-shared", "-Xcompiler", "-fPIC", "-o", out,
                 os.path.join(CSRC, name + ".cu")]
+    core = os.path.join(VTPUCORE_SRC, "vtpu_core.cc")
     if name == "vtpucore":
-        return ["g++", "-O2", "-fPIC", "-std=c++17", "-shared", "-pthread",
-                "-I" + VTPUCORE_SRC, "-o", out,
-                os.path.join(VTPUCORE_SRC, "vtpu_core.cc")]
+        return [*_GXX, "-shared", "-pthread", "-I" + VTPUCORE_SRC, "-o", out,
+                core]
+    if name == "vtpu_cuda":
+        return [*_GXX, "-shared", "-pthread", "-fvisibility=hidden",
+                "-I" + VTPUCORE_SRC, "-o", out, *_native("interposer.cc"),
+                core, "-ldl"]
+    if name in _MOCKS:
+        define, soname = _MOCKS[name]
+        return [*_GXX, "-shared", "-pthread", define, "-Wl,-Bsymbolic",
+                "-Wl,-soname," + soname, "-o", out,
+                *_native("mock_cuda.cc"), "-ldl"]
+    if name == "interposer_test":
+        return [*_GXX, "-pthread", "-o", out,
+                *_native("interposer_test.cc"), "-ldl"]
     raise KeyError(name)
 
 
 def _inputs(name: str) -> List[str]:
     if name in KERNELS:
         return [os.path.join(CSRC, name + ".cu"), *_headers()]
-    return [os.path.join(VTPUCORE_SRC, f) for f in ("vtpu_core.cc",
+    core = [os.path.join(VTPUCORE_SRC, f) for f in ("vtpu_core.cc",
                                                     "vtpu_core.h")]
+    if name == "vtpucore":
+        return core
+    src = {"vtpu_cuda": "interposer.cc", "interposer_test":
+           "interposer_test.cc"}.get(name, "mock_cuda.cc")
+    return [*_native(src, "cuda_abi.h"), *(core if name == "vtpu_cuda"
+                                           else [])]
 
 
 def _target(name: str) -> str:
@@ -87,7 +126,9 @@ def _target(name: str) -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(_recipe(name, "OUT")[1:]).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    base = (f"{name}-{h.hexdigest()[:16]}" if name == "interposer_test"
+            else f"lib{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, base)
 
 
 def _start(name: str):
@@ -118,7 +159,7 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, target)
 
 
-def build_all(names=(*KERNELS, "vtpucore")) -> Dict[str, str]:
+def build_all(names=(*KERNELS, *HOST)) -> Dict[str, str]:
     """Build every library in ``names`` concurrently; returns each
     library's path.  Raises if any build failed, after every compiler
     it started has ended."""
@@ -136,6 +177,20 @@ def build_all(names=(*KERNELS, "vtpucore")) -> Dict[str, str]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return {n: _target(n) for n in names}
+
+
+def abi_check() -> None:
+    """Compile ``native/abi_check.cc`` against the CUDA toolkit's cuda.h
+    and nvml.h, compile only: raises when ``native/cuda_abi.h`` has
+    drifted from them (or the toolkit is missing)."""
+    include = os.path.join(os.path.dirname(os.path.dirname(_nvcc())),
+                           "include")
+    r = subprocess.run([*_GXX, "-fsyntax-only", "-I" + include,
+                        *_native("abi_check.cc")], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"native/abi_check.cc failed against {include}:"
+                           f"\n{r.stderr[-4000:]}")
 
 
 def build_log(name: str) -> str:

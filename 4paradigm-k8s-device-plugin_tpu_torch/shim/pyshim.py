@@ -13,8 +13,13 @@ into the framework:
 - ``gated(fn)`` wraps a call: gate on the token bucket, run, synchronise
   the card, observe the measured time, charge the outputs.
 
-A libcuda interposer that enforces without the tenant's cooperation is
-a later slice.
+A tenant started under the native interposer (``shim/interposer.py``,
+``libvtpu_cuda.so`` in LD_PRELOAD) is held to the same quota inside the
+CUDA driver API without any of these calls, as ``vtpu`` leaves
+enforcement to its PJRT interposer.  ``install_torch_enforcement`` then
+stands down, and ``region_ledger`` reads the region the interposer
+charges.  Only the interposer's own symbol, found in the process, makes
+it stand down, so a quota is never dropped.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from ..utils import envspec
 from ..utils import logging as log
+from . import interposer
 from .core import RateLease, SharedRegion
 
 DEFAULT_REGION = "/tmp/vtpushr.cache"
@@ -51,6 +57,47 @@ def _tensors(obj) -> List[torch.Tensor]:
     return []
 
 
+def open_region(spec: envspec.QuotaSpec) -> SharedRegion:
+    """The region ``spec`` names, created with its limits if absent (the
+    interposer seeds a new region with the same values)."""
+    n = max([o for o in spec.hbm_limit_bytes if o >= 0], default=0) + 1
+    limits = [spec.limit_for(i) for i in range(n)]
+    return SharedRegion(spec.shared_cache or DEFAULT_REGION, limits=limits,
+                        core_pcts=[spec.core_limit_pct] * n)
+
+
+def _has_quota(spec: envspec.QuotaSpec) -> bool:
+    return bool(spec.hbm_limit_bytes or spec.core_limit_pct)
+
+
+def _ledger(region: SharedRegion, dev: int) -> Dict[str, Any]:
+    """The region's view of ``dev``: cap, bytes charged by all processes
+    and by this one, device time, live processes."""
+    ds = region.device_stats(dev)
+    mine = [p for p in region.proc_stats() if p.pid == os.getpid()]
+    return {
+        "limit_bytes": int(ds.limit_bytes),
+        "used_bytes": int(ds.used_bytes),
+        "proc_used_bytes": int(mine[0].used_bytes[dev]) if mine else 0,
+        "busy_us": int(ds.busy_us),
+        "proc_busy_us": int(mine[0].busy_us[dev]) if mine else 0,
+        "active_procs": region.active_procs(),
+    }
+
+
+def region_ledger(dev: Optional[int] = None) -> Optional[Dict[str, Any]]:
+    """The ledger of the region that the environment names, as
+    ``TorchEnforcer.ledger`` gives it, read without taking a slot; None
+    when the environment sets no quota."""
+    spec = envspec.quota_from_env()
+    if not _has_quota(spec):
+        return None
+    with open_region(spec) as region:
+        n = region.ndevices
+        return _ledger(region, dev if dev is not None and 0 <= dev < n
+                       else 0)
+
+
 class TorchEnforcer:
     """Shared-region accounting for one tenant process."""
 
@@ -58,11 +105,7 @@ class TorchEnforcer:
                  env: Optional[Mapping[str, str]] = None):
         env = os.environ if env is None else env
         self.spec = spec
-        n = max([o for o in spec.hbm_limit_bytes if o >= 0], default=0) + 1
-        limits = [spec.limit_for(i) for i in range(n)]
-        pcts = [spec.core_limit_pct] * n
-        self.region = SharedRegion(spec.shared_cache or DEFAULT_REGION,
-                                   limits=limits, core_pcts=pcts)
+        self.region = open_region(spec)
         self.region.register()
         # Floor on the charged cost per call: keeps throttling meaningful
         # when measured times are tiny.
@@ -245,24 +288,20 @@ class TorchEnforcer:
     def ledger(self, dev: int = 0) -> Dict[str, Any]:
         """The region's view of ``dev``: cap, bytes charged by all
         processes and by this one, device time, live processes."""
-        ds = self.region.device_stats(dev)
-        mine = [p for p in self.region.proc_stats() if p.pid == os.getpid()]
-        return {
-            "limit_bytes": int(ds.limit_bytes),
-            "used_bytes": int(ds.used_bytes),
-            "proc_used_bytes": int(mine[0].used_bytes[dev]) if mine else 0,
-            "busy_us": int(ds.busy_us),
-            "proc_busy_us": int(mine[0].busy_us[dev]) if mine else 0,
-            "active_procs": self.region.active_procs(),
-        }
+        return _ledger(self.region, dev)
 
 
 def install_torch_enforcement(
         env: Optional[Mapping[str, str]] = None) -> Optional[TorchEnforcer]:
     """The enforcer for the quota that ``env`` (default ``os.environ``)
-    sets, or None when it sets neither an HBM nor a compute limit."""
+    sets, or None when it sets neither an HBM nor a compute limit, or
+    when the native interposer is in this process and enforces it."""
     spec = envspec.quota_from_env(env)
-    if not spec.hbm_limit_bytes and not spec.core_limit_pct:
+    if not _has_quota(spec):
+        return None
+    if interposer.loaded():
+        log.info("libvtpu_cuda interposer loaded: it enforces the quota "
+                 "natively; no in-process enforcer")
         return None
     enf = TorchEnforcer(spec, env)
     log.info("torch quota enforcement installed (limits=%s, core=%d%%)",

@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs five phases, each of which asserts; any failure exits non-zero
+then runs seven phases, each of which asserts; any failure exits non-zero
 and prints no result line.
 
-1. Device: the card's name and power limit, the versions, the build.
-   Fails if ptxas reports a spill in the Hopper attention kernel.
+1. Device: the card's name and power limit, the versions, the build (the
+   CUDA kernels, the region, the interposer and its test programs).
+   Fails if ptxas reports a spill in the Hopper attention kernel, or if
+   the interposer's ABI header disagrees with the toolkit's cuda.h and
+   nvml.h (native/abi_check.cc, compiled only).
 2. Kernel vs plain: the CUDA attention kernels against their plain
    PyTorch version on the card, at the shapes of the JAX package's kernel
    tests, ragged and small head_dim cases, and the serving shapes; each
@@ -25,7 +28,20 @@ and prints no result line.
 4. Quota: a second copy of the weights is refused under the 20 GiB cap
    before anything is allocated; releasing the model empties the ledger.
 5. Two tenants: two processes at 50% compute shares serve the bench
-   config on one region at once.
+   config on one region at once, under the in-process enforcer.
+6. Interposed serving: a child started under the native interposer
+   (``shim.interposer.tenant_env``, 20 GiB cap, core 100%) serves
+   Llama-3-8B through ``entry.serve`` with no enforcer of its own.  It
+   checks that mem_get_info and nvidia-smi show the cap, that all 128
+   attention launches took the sm90 route, that one ctypes launch of the
+   kernel passes the interposer's gate once, that the gate saw every
+   kernel the profiler recorded over one forward, and that a second copy
+   of the weights is refused (again with expandable segments, the
+   cuMemCreate path); the ledger is 0 once the children have exited.
+7. Interposed tenants: the bench config under the interposer at 100%,
+   at 50% FORCE, and two processes at 50% FORCE on one region, each
+   serving for at least 8 s, metered by the interposer's watcher (each
+   process's busy time, shared among the region's busy processes).
 
 The line before the last is one JSON object with each kernel's numbers;
 the last is ``{"ok": true, "device": {...}}``.
@@ -76,6 +92,19 @@ TENANT_ENV = {"VTPU_DEVICE_HBM_LIMIT_0": "2048Mi",
               "VTPU_CORE_UTILIZATION_POLICY": "FORCE"}
 TENANT_STEPS = 60          # bench.py's step count
 TENANT_SHAPE = (4, 512)    # bench.py's batch and sequence
+# Phase 7 serves each interposed tenant this long, so the metering covers
+# the run and the bucket's 400 ms burst allowance adds at most 0.05 to a
+# 50% share.
+METERED_S = 8.5
+# Phase 7's cap, which two tenants share.  Under the interposer every
+# segment the caching allocator holds is charged (init_module's cached f32
+# draws and the activations too), where the pyshim charged the bf16
+# weights alone: two bench tenants do not fit in phase 5's 2048 MiB, and
+# the second one's init is refused (PERF.md).
+METERED_CAP = {"VTPU_DEVICE_HBM_LIMIT_0": "8Gi"}
+# Steps of the unsynchronised greedy loop that phases 3 and 6 time beside
+# serve's own rate (three timed steps, which the host's jitter spreads).
+LOOP_STEPS = 12
 
 
 class Failed(Exception):
@@ -110,6 +139,8 @@ def phase_device(torch):
     t0 = time.monotonic()
     paths = _build.build_all()
     say(f"build: {time.monotonic() - t0:.1f} s for {sorted(paths)}")
+    _build.abi_check()
+    say("abi: native/cuda_abi.h agrees with the toolkit's cuda.h and nvml.h")
     for name in _build.KERNELS:
         spills = []
         for line in _build.build_log(name).splitlines():
@@ -247,6 +278,19 @@ def time_serving_shape(torch, fa, q, k, v, causal, err, want):
     return rows
 
 
+def greedy_rate(torch, model, tokens, steps=LOOP_STEPS):
+    """Steps/s of ``steps`` greedy steps queued back to back (serve's
+    loop, with nothing between the steps), after one untimed step."""
+    with torch.inference_mode():
+        tokens = torch.argmax(model(tokens), dim=-1).int()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(steps):
+            tokens = torch.argmax(model(tokens), dim=-1).int()
+        torch.cuda.synchronize()
+    return steps / (time.monotonic() - t0)
+
+
 def device_breakdown(torch, fn):
     """Device time of one call of ``fn`` by kernel family, summed from
     torch.profiler's kernel records, beside the call's wall time (taken
@@ -301,7 +345,7 @@ def phase_serve(torch, tmp):
     total = fa.flash_attention.launches
     wall = time.monotonic() - t0
     model, enf, ledger = out["model"], out["enforcer"], out["ledger"]
-    tokens = out["tokens"]
+    tokens, out_rate = out["tokens"], out["steps_per_s"]
     param_bytes = tr.state_bytes(cfg)
     say(f"serve llama3_8b b=2 s=512: 4 steps, {out['steps_per_s']:.3f} "
         f"steps/s after the first, {wall:.1f} s with init; launches "
@@ -315,6 +359,9 @@ def phase_serve(torch, tmp):
           and int(tokens.max()) < cfg.vocab, "tokens out of range")
     check(ledger["used_bytes"] >= param_bytes,
           f"ledger {ledger['used_bytes']} < weights {param_bytes}")
+    loop_rate = greedy_rate(torch, model, tokens.cuda())
+    say(f"greedy loop, {LOOP_STEPS} steps, no enforcement: {loop_rate:.3f} "
+        "steps/s")
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     with torch.inference_mode():
@@ -375,7 +422,7 @@ def phase_serve(torch, tmp):
     enf.close()
     for key in (*QUOTA_ENV, "VTPU_DEVICE_MEMORY_SHARED_CACHE"):
         del os.environ[key]
-    return launches
+    return launches, {"serve": out_rate, "loop": loop_rate}
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -461,6 +508,347 @@ def phase_tenants(tmp):
         + ", ".join(f"{r['steps_per_s']:.2f}" for r in shared))
 
 
+# -- phases 6 and 7: the native interposer ----------------------------------
+
+def child(args, env, timeout=600):
+    """Run this script as ``--child <args>`` under ``env``; returns the
+    dict it prints on its ``RESULT`` line."""
+    r = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
+                        *args], env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    for line in r.stderr.splitlines():
+        if "[vtpu_cuda]" in line:
+            say("  " + line)
+    res = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
+    check(r.returncode == 0 and res, f"interposed child {args} failed "
+          f"(rc {r.returncode}):\n{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return json.loads(res[-1][len("RESULT "):])
+
+
+def kernel_records(torch, prof):
+    """Kernel executions in a torch.profiler run (copies and fills
+    excluded)."""
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def second_copy_refused(torch, cfg):
+    """A second copy of the weights is refused with OutOfMemoryError, and
+    leaves the ledger where it was once the cache is emptied."""
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.shim.pyshim import region_ledger
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = region_ledger(0)["used_bytes"]
+    try:
+        # Transformer() holds its parameters on the meta device:
+        # to_empty allocates them on the card, tensor by tensor.
+        tr.Transformer(cfg).to_empty(device="cuda")
+        raise Failed("a second copy of the weights was admitted")
+    except torch.OutOfMemoryError as e:
+        refusal = str(e).splitlines()[0][:200]
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = region_ledger(0)["used_bytes"]
+    check(after == before, f"the refused copy left {after - before} bytes "
+          "charged")
+    return {"refusal": refusal, "used_bytes": after}
+
+
+def nvml_process_view():
+    """What NVML offers per process on this machine: the return code of
+    nvmlDeviceGetProcessUtilization (the reference's metering source; 0 is
+    success, 3 not supported, 6 no samples yet, 7 the buffer is too
+    small) and the pids NVML lists with a context on card 0, beside this
+    process's own pid."""
+    import ctypes
+
+    u32, u64 = ctypes.c_uint, ctypes.c_ulonglong
+
+    class Sample(ctypes.Structure):
+        _fields_ = [("pid", u32), ("timeStamp", u64), ("smUtil", u32),
+                    ("memUtil", u32), ("encUtil", u32), ("decUtil", u32)]
+
+    class Info(ctypes.Structure):
+        _fields_ = [("pid", u32), ("usedGpuMemory", u64),
+                    ("gpuInstanceId", u32), ("computeInstanceId", u32)]
+
+    nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    dev = ctypes.c_void_p()
+    check(nvml.nvmlInit_v2() == 0 and nvml.nvmlDeviceGetHandleByIndex_v2(
+        0, ctypes.byref(dev)) == 0, "NVML does not open card 0")
+    n, samples = u32(64), (Sample * 64)()
+    rc = nvml.nvmlDeviceGetProcessUtilization(dev, samples, ctypes.byref(n),
+                                              u64(0))
+    m, infos = u32(64), (Info * 64)()
+    rc_procs = nvml.nvmlDeviceGetComputeRunningProcesses_v3(
+        dev, ctypes.byref(m), infos)
+    return {"process_utilization_rc": rc, "pid": os.getpid(),
+            "compute_pids": ([infos[i].pid for i in range(m.value)]
+                             if rc_procs == 0 else rc_procs)}
+
+
+def interposed_serve_child(torch):
+    """Phase 6, inside the interposed child."""
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.ops import flash_attention as fa
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.shim.pyshim import region_ledger
+
+    check(interposer.loaded(), "the interposer is not in the child")
+    cfg = tr.TransformerConfig.llama3_8b()
+    res = {}
+    if os.environ.get("PYTORCH_CUDA_ALLOC_CONF"):
+        out = entry.serve("llama3_8b", 2, 512, 2)
+        check(out["enforcer"] is None, "an in-process enforcer installed")
+        res["ledger"] = out["ledger"]
+        check(out["ledger"]["used_bytes"] >= tr.state_bytes(cfg),
+              "the weights were not charged (cuMemCreate not hooked?)")
+        res.update(second_copy_refused(torch, cfg))
+        res["stats"] = interposer.stats()
+        return res
+    fa.flash_attention.launches = 0
+    fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+    out = entry.serve("llama3_8b", 2, 512, 4)
+    res["launches"] = dict(fa.flash_attention.route_launches)
+    res["steps_per_s"] = out["steps_per_s"]
+    check(out["enforcer"] is None, "an in-process enforcer installed")
+    check(fa.flash_attention.launches == 4 * cfg.n_layers
+          == res["launches"]["sm90"], f"launches {res['launches']}")
+    tokens = out["tokens"].cuda()
+    check(tokens.shape == (2, 512) and int(tokens.max()) < cfg.vocab,
+          "tokens out of range")
+    res["loop_steps_per_s"] = greedy_rate(torch, out["model"], tokens)
+    # Segment granularity: what the interposer charged beside what the
+    # caching allocator holds.
+    res["charged_bytes"] = interposer.stats()["charged_bytes"]
+    res["torch_reserved_bytes"] = torch.cuda.memory_reserved()
+
+    free, total = torch.cuda.mem_get_info()
+    ledger = region_ledger(0)
+    res["mem_get_info"] = [free, total]
+    res["ledger"] = ledger
+    check(total == ledger["limit_bytes"] == 20 * 2**30,
+          f"mem_get_info total {total} is not the 20 GiB cap")
+    check(free == total - ledger["used_bytes"],
+          f"mem_get_info free {free} != cap - region used")
+    check(ledger["used_bytes"] >= tr.state_bytes(cfg),
+          "the weights are not charged")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=memory.total,"
+                          "memory.used", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    res["nvidia_smi"] = smi.stdout.strip()
+    check(smi.returncode == 0 and int(smi.stdout.split(",")[0]) == 20480,
+          f"nvidia-smi does not show the cap: {smi.stdout} {smi.stderr}")
+    res["nvml"] = nvml_process_view()
+
+    # One launch of the kernel through ctypes passes the gate once: the
+    # kernel library's own (static) CUDA runtime is hooked.
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn((64, 512, 128), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    fa._launch(q, k, v, True, route="sm90")
+    torch.cuda.synchronize()
+    n0 = interposer.stats()["launches"]
+    fa._launch(q, k, v, True, route="sm90")
+    torch.cuda.synchronize()
+    res["k1_gate_delta"] = interposer.stats()["launches"] - n0
+    check(res["k1_gate_delta"] == 1,
+          f"one K1 launch passed the gate {res['k1_gate_delta']} times")
+
+    # Every kernel of one forward passed the gate.
+    from torch.profiler import ProfilerActivity, profile
+    model = out["model"]
+    with torch.inference_mode():
+        model(tokens)
+        torch.cuda.synchronize()
+        n0 = interposer.stats()["launches"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(tokens)
+            torch.cuda.synchronize()
+        gated = interposer.stats()["launches"] - n0
+    res["forward"] = {"gated": gated, "profiled": kernel_records(torch, prof)}
+    check(gated == res["forward"]["profiled"] > 0,
+          f"gate vs profiler over one forward: {res['forward']}")
+    del q, k, v, prof
+    res.update(second_copy_refused(torch, cfg))   # the model stays loaded
+    res["stats"] = interposer.stats()
+    return res
+
+
+def phase_interposed(torch, tmp, direct):
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.shim.core import SharedRegion
+
+    region = os.path.join(tmp, "interposed.shr")
+    env = interposer.tenant_env(dict(QUOTA_ENV,
+                                     VTPU_DEVICE_MEMORY_SHARED_CACHE=region))
+    got = child(["serve"], env)
+    say("interposed serve llama3_8b b=2 s=512: " + json.dumps(got))
+    say(f"interposed {got['steps_per_s']:.3f} steps/s vs phase 3 (in-process "
+        f"enforcer) {direct['serve']:.3f}: "
+        f"{got['steps_per_s'] / direct['serve']:.3f}x; greedy loop "
+        f"{got['loop_steps_per_s']:.3f} vs {direct['loop']:.3f} with no "
+        f"enforcement: {got['loop_steps_per_s'] / direct['loop']:.3f}x")
+    vmm = child(["serve"], dict(
+        env, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+    say("interposed, expandable segments: " + json.dumps(vmm))
+    with SharedRegion(region) as reg:
+        reg.active_procs()   # sweeps the slots of exited processes
+        used = reg.device_stats(0).used_bytes
+    check(used == 0, f"ledger holds {used} bytes after the children exited")
+    say("interposed: ledger 0 after the children exited")
+    return got
+
+
+def metered_child(torch, go):
+    """Phase 7, inside one interposed tenant: serve the bench config, then
+    wait for ``go`` and run the greedy loop for METERED_S."""
+    from vtpu_torch import entry
+    from vtpu_torch.shim import interposer
+
+    check(interposer.loaded(), "the interposer is not in the tenant")
+    out = entry.serve("bench", *TENANT_SHAPE, steps=3)
+    model, tokens = out["model"], out["tokens"].cuda()
+    torch.cuda.synchronize()
+    memory = {"charged_bytes": interposer.stats()["charged_bytes"],
+              "torch_reserved_bytes": torch.cuda.memory_reserved()}
+    print("READY", flush=True)
+    while not os.path.exists(go):
+        time.sleep(0.005)
+    s0 = interposer.stats()
+    steps = 0
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        while time.monotonic() - t0 < METERED_S:
+            tokens = torch.argmax(model(tokens), dim=-1).int()
+            steps += 1
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    s1 = interposer.stats()
+    return {"pid": os.getpid(), "steps_per_s": steps / wall,
+            "booked_us": s1["booked_us"] - s0["booked_us"],
+            "debited_us": s1["debited_us"] - s0["debited_us"],
+            "gate_waits": s1["gate_waits"] - s0["gate_waits"],
+            "launches": s1["launches"] - s0["launches"],
+            "gate_ns_per_launch": (s1["gate_ns"] - s0["gate_ns"]
+                                   - s1["wait_ns"] + s0["wait_ns"])
+            / max(s1["launches"] - s0["launches"], 1),
+            "wall_s": wall, "meter": s1["meter"],
+            "busy_ticks": s1["busy_ticks"] - s0["busy_ticks"],
+            "shared_ticks": s1["shared_ticks"] - s0["shared_ticks"],
+            **memory}
+
+
+def run_metered(quota, n, tmp, name):
+    """``n`` interposed tenants on one region, released together."""
+    from vtpu_torch.shim import interposer
+
+    region = os.path.join(tmp, f"{name}.shr")
+    go = os.path.join(tmp, f"{name}.go")
+    env = interposer.tenant_env(dict(
+        quota, VTPU_DEVICE_MEMORY_SHARED_CACHE=region))
+    # stderr goes to a file: a pipe nobody reads could fill and stall the
+    # tenant, and a tenant that dies early is reported with its traceback.
+    errs = [open(os.path.join(tmp, f"{name}.{i}.err"), "w+")
+            for i in range(n)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--child", "metered", go], env=env,
+                              stdout=subprocess.PIPE, stderr=err, text=True)
+             for err in errs]
+
+    def stderr_of(i):
+        if procs[i].poll() is None:
+            return ""
+        errs[i].seek(0)
+        return errs[i].read()[-3000:]
+
+    try:
+        for i, p in enumerate(procs):
+            line = p.stdout.readline()
+            if line.strip() != "READY":
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    pass
+            check(line.strip() == "READY", f"tenant not ready: {line!r} "
+                  f"(rc {p.poll()}) {stderr_of(i)}")
+        open(go, "w").close()
+        got = []
+        for i, p in enumerate(procs):
+            out, _ = p.communicate(timeout=300)
+            res = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            check(p.returncode == 0 and res,
+                  f"tenant failed (rc {p.returncode}): {stderr_of(i)}")
+            got.append(json.loads(res[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for err in errs:
+            err.close()
+    return got
+
+
+def phase_metered(tmp):
+    share = dict(TENANT_ENV, **METERED_CAP)
+    solo100 = run_metered(dict(METERED_CAP, VTPU_DEVICE_CORE_LIMIT="100"), 1,
+                          tmp, "solo100")[0]
+    solo50 = run_metered(share, 1, tmp, "solo50")[0]
+    shared = run_metered(share, 2, tmp, "shared50")
+    for label, rows in (("100%", [solo100]), ("50% FORCE", [solo50]),
+                        ("two at 50% FORCE", shared)):
+        say(f"interposed tenants {label}: " + json.dumps(rows))
+    base = solo50["steps_per_s"]
+    rates = [r["steps_per_s"] for r in shared]
+    say(f"interposed tenants steps/s (bench config b={TENANT_SHAPE[0]} "
+        f"s={TENANT_SHAPE[1]}, {METERED_S} s each): 100% "
+        f"{solo100['steps_per_s']:.2f}, 50% FORCE {base:.2f} "
+        f"({base / solo100['steps_per_s']:.3f} of 100%), shared "
+        + ", ".join(f"{r:.2f} ({r / base:.3f})" for r in rates)
+        + f", together {sum(rates):.2f} ({sum(rates) / base:.3f} of the 50% "
+        "solo rate)")
+    check(all(r["meter"] == 1 and r["busy_ticks"] > 0 and r["booked_us"] > 0
+              for r in [solo100, solo50, *shared]),
+          "a tenant's device time was not metered")
+    check(all(r["shared_ticks"] > 0 for r in shared),
+          "the two tenants never saw each other busy")
+    # What one call into the region costs on this machine: the reason the
+    # interposer's launch path makes none.
+    from vtpu_torch.shim.core import SharedRegion
+    with SharedRegion(os.path.join(tmp, "shared50.shr")) as reg:
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            reg.mem_info(0)
+        call_us = (time.perf_counter() - t0) / 2000 * 1e6
+    say(f"region call (locked, through ctypes): {call_us:.2f} us")
+    check(solo50["gate_waits"] > 0 and base < solo100["steps_per_s"],
+          "the 50% share never held the tenant back")
+
+
+def child_main(args):
+    """``--child serve`` (phase 6) or ``--child metered <go file>`` (phase
+    7): one interposed tenant; prints its RESULT line."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    try:
+        if args[0] == "serve":
+            res = interposed_serve_child(torch)
+        else:
+            res = metered_child(torch, args[1])
+    except Failed as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+    print("RESULT " + json.dumps(res), flush=True)
+    return 0
+
+
 def main():
     try:
         import torch
@@ -480,8 +868,10 @@ def main():
         phase_device(torch)
         timed = phase_kernel(torch)
         with tempfile.TemporaryDirectory() as tmp:
-            launches = phase_serve(torch, tmp)
+            launches, direct = phase_serve(torch, tmp)
             phase_tenants(tmp)
+            phase_interposed(torch, tmp, direct)
+            phase_metered(tmp)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -499,4 +889,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child_main(sys.argv[2:]))
     sys.exit(main())

@@ -21,6 +21,7 @@ from vtpu.utils import envspec as jenv
 from vtpu_torch.models import transformer as ttr
 from vtpu_torch.models.convert import params_from_numpy
 from vtpu_torch.ops import _build
+from vtpu_torch.shim import interposer
 from vtpu_torch.shim.pyshim import install_torch_enforcement
 from vtpu_torch.utils import envspec as tenv
 
@@ -181,3 +182,42 @@ def test_tiny_model_ledger_matches_vtpu_pyshim(tmp_path, enforcer_for):
     model = params_from_numpy(tree, ttr.TransformerConfig.tiny(), "cpu", enf)
     assert enf.ledger()["used_bytes"] == jax_bytes
     assert jax_bytes == ttr.state_bytes(model.cfg) > 0
+
+
+def preloaded(tmp_path, quota):
+    """The env of a process started under the native interposer, with the
+    mock driver (native/mock_cuda.cc) as libcuda.so.1."""
+    paths = _build.build_all(("vtpu_cuda", "mockcuda", "mocknvml"))
+    mocks = tmp_path / "mock_driver"
+    mocks.mkdir()
+    os.symlink(paths["mockcuda"], mocks / "libcuda.so.1")
+    os.symlink(paths["mocknvml"], mocks / "libnvidia-ml.so.1")
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("VTPU_", "LD_"))}
+    env = interposer.tenant_env(_env(tmp_path, **quota), base=base)
+    env["LD_LIBRARY_PATH"] = str(mocks)
+    return env
+
+
+def test_install_stands_down_only_under_interposer(tmp_path,
+                                                   enforcer_for):
+    """Under the interposer (its ident symbol resolves in the process)
+    install_torch_enforcement returns None: the quota is enforced
+    natively.  Without the symbol it installs the enforcer as before."""
+    code = f"""
+        import json, sys
+        sys.path.insert(0, {REPO!r})
+        from vtpu_torch.shim import interposer
+        from vtpu_torch.shim.pyshim import install_torch_enforcement
+        enf = install_torch_enforcement()
+        print(json.dumps({{"loaded": interposer.loaded(),
+                           "enforcer": enf is not None}}))
+    """
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=300,
+                       env=preloaded(tmp_path, {}))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == {
+        "loaded": True, "enforcer": False}
+    assert not interposer.loaded()
+    assert enforcer_for() is not None

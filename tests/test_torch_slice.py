@@ -4,7 +4,9 @@ enforcer over the shared region → transformer serving greedy steps
 on the same weights; and the port's import hygiene."""
 
 import dataclasses
+import json
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -84,6 +86,39 @@ def test_entry_forward_on_cpu():
     assert torch.isfinite(logits).all()
 
 
+def test_serve_ledger_from_region_under_interposer(tmp_path, monkeypatch):
+    """A tenant started under the native interposer serves with no
+    in-process enforcer, and serve's ledger, read from the region, has
+    the keys the enforcer's ledger has."""
+    from test_torch_pyshim import preloaded
+
+    code = f"""
+        import json, sys
+        sys.path.insert(0, {REPO!r})
+        from vtpu_torch import entry
+        out = entry.serve("tiny", batch=1, seq=16, steps=2, device="cpu")
+        print(json.dumps({{"enforcer": out["enforcer"] is not None,
+                           "ledger": out["ledger"]}}))
+    """
+    env = preloaded(tmp_path, {"VTPU_DEVICE_HBM_LIMIT_0": "64Mi"})
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    got = json.loads(r.stdout.strip().splitlines()[-1])
+    assert got["enforcer"] is False
+    ledger = got["ledger"]
+    assert ledger["limit_bytes"] == 64 * 2**20
+
+    monkeypatch.setenv("VTPU_DEVICE_HBM_LIMIT_0", "64Mi")
+    monkeypatch.setenv("VTPU_DEVICE_MEMORY_SHARED_CACHE",
+                       str(tmp_path / "own.cache"))
+    out = entry.serve("tiny", batch=1, seq=16, steps=2, device="cpu")
+    try:
+        assert set(ledger) == set(out["ledger"])
+    finally:
+        out["enforcer"].close()
+
+
 def test_cuda_without_card_raises():
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="no CUDA card"):
@@ -94,7 +129,9 @@ def test_cuda_without_card_raises():
 
 def test_import_hygiene():
     """Every module of the port, and chip_smoke.py, import with jax and
-    vtpu made unimportable, and leave no vtpu module behind."""
+    vtpu made unimportable, and leave no vtpu module behind; the port's
+    C++ sources include nothing of the JAX package's native/ tree but the
+    region's header."""
     mods = []
     for root, _, files in os.walk(PORT):
         for f in files:
@@ -132,4 +169,13 @@ def test_import_hygiene():
                        cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "clean" in r.stdout
-    assert len(mods) >= 12
+    assert len(mods) >= 13 and "vtpu_torch.shim.interposer" in mods
+
+    native = os.path.join(PORT, "native")
+    sources = sorted(os.listdir(native))
+    assert {"interposer.cc", "mock_cuda.cc", "interposer_test.cc",
+            "abi_check.cc", "cuda_abi.h"} <= set(sources)
+    for f in sources:
+        with open(os.path.join(native, f)) as fh:
+            includes = re.findall(r'^#include\s+"([^"]+)"', fh.read(), re.M)
+        assert set(includes) <= {"cuda_abi.h", "vtpu_core.h"}, (f, includes)
