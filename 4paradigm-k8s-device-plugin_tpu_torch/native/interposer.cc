@@ -59,10 +59,17 @@
  *            bucket is in debt or a floor is set.  A watcher
  *            thread books the process's OWN device time into the bucket
  *            and the duty counter: the time its streams have work
- *            pending, divided among the region's processes busy at the
+ *            pending, divided among the card's processes busy at the
  *            same time (the card time-slices between them).  Wall time
  *            around a synchronise would also bill a co-tenant's slices.
  *            VTPU_MIN_EXEC_COST_US charges a floor per launch up front.
+ *            Processes meet in one busy file per physical card
+ *            (<VTPU_DEVICE_BUSY_DIR>/<card uuid>.busy, the UUIDs from
+ *            VTPU_DEVICE_MAP; the daemon makes each, Allocate mounts
+ *            the granted cards'), so co-tenants of a card in other
+ *            regions and other containers are seen; without the
+ *            directory, the processes of one region meet in
+ *            <region>.busy.
  *
  * A quota env with no usable region (unopenable path, incompatible
  * layout, a value that does not parse) fails CLOSED: every hooked
@@ -70,13 +77,15 @@
  * quota env at all the library forwards everything.
  *
  * Not carried over from vtpu's interposer (ROADMAP Queue 1): core-split
- * device filtering (CUDA_VISIBLE_DEVICES / NVIDIA_DEVICE_MAP come with
- * Allocate), donation and staged residency (PJRT concepts), and
- * preload.cc's dlopen redirect (the ld.so.preload mount comes with
- * Allocate).  Region ordinals are the CUDA device ordinals, and NVML
- * device i is taken as CUDA device i, as they are in a container that
- * Allocate gave its cards.  A device past the region's last ordinal is
- * charged to ordinal 0, as the pyshim's clamp_dev does.
+ * device filtering (Allocate sets NVIDIA_VISIBLE_DEVICES, so the container
+ * runtime shows the pod its cards or MIG instances only), donation and
+ * staged residency (PJRT concepts), and preload.cc's dlopen redirect
+ * (Allocate mounts this library over /etc/ld.so.preload).  Region
+ * ordinals are the CUDA device ordinals, and NVML device i is taken as
+ * CUDA device i, as they are in a container that Allocate gave its cards
+ * (VTPU_DEVICE_MAP names the physical card behind each ordinal).  A device
+ * past the region's last ordinal is charged to ordinal 0, as the pyshim's
+ * clamp_dev does.
  */
 #include <ctype.h>
 #include <dlfcn.h>
@@ -89,6 +98,7 @@
 #include <stdlib.h>
 #include <string.h>
 #include <sys/mman.h>
+#include <sys/random.h>
 #include <sys/stat.h>
 #include <time.h>
 #include <unistd.h>
@@ -248,6 +258,8 @@ struct Quota {
   bool oom_killer = false;
   uint64_t min_cost_us = 0;
   std::string region;
+  std::string busy_dir;                 /* VTPU_DEVICE_BUSY_DIR */
+  std::string uuids[VTPU_MAX_DEVICES];  /* VTPU_DEVICE_MAP: card per ordinal */
 };
 
 static std::string strip(const char* s) {
@@ -377,6 +389,25 @@ static Quota parse_quota() {
   }
   const char* path = getenv("VTPU_DEVICE_MEMORY_SHARED_CACHE");
   q.region = path && *path ? path : "/tmp/vtpushr.cache";
+  /* envspec.parse_device_map: "<i>:<uuid> ..."; a token without ':' or
+   * with an ordinal int() rejects is an error. */
+  std::string map = strip(getenv("VTPU_DEVICE_MAP"));
+  for (size_t i = 0; i < map.size();) {
+    size_t end = map.find_first_of(" \t\n\r\f\v", i);
+    if (end == std::string::npos) end = map.size();
+    std::string tok = map.substr(i, end - i);
+    i = map.find_first_not_of(" \t\n\r\f\v", end);
+    if (i == std::string::npos) i = map.size();
+    size_t colon = tok.find(':');
+    long ord = 0;
+    if (colon == std::string::npos ||
+        !parse_int(tok.substr(0, colon).c_str(), &ord)) {
+      q.bad = true;
+      continue;
+    }
+    if (ord >= 0 && ord < VTPU_MAX_DEVICES) q.uuids[ord] = tok.substr(colon + 1);
+  }
+  q.busy_dir = strip(getenv("VTPU_DEVICE_BUSY_DIR"));
   return q;
 }
 
@@ -930,11 +961,28 @@ static void book(int dev, uint64_t us, uint64_t floor_us) {
  * whether work is pending (cuStreamQuery).  A device with pending work is
  * busy for that tick.  The card time-slices between processes, so while
  * k processes are busy on it each runs about 1/k of the tick: the
- * processes of one region publish their busy ticks in a file beside it
- * (<region>.busy, one slot each) and each books tick/k.  Every
- * kTicksPerBooking ticks the watcher books that time into the duty
- * counter and, while gating, into the bucket, and reads the bucket back:
- * below 1 µs, launches wait.
+ * processes on a card publish their busy ticks in a busy file (one slot
+ * each) and each books tick/k.  Every kTicksPerBooking ticks the watcher
+ * books that time into the duty counter and, while gating, into the
+ * bucket, and reads the bucket back: below 1 µs, launches wait.
+ *
+ * The busy file is the card's own, <VTPU_DEVICE_BUSY_DIR>/<uuid>.busy
+ * with the card's UUID from VTPU_DEVICE_MAP: every Allocate gives its pod
+ * a private region, and only a file per card lets two pods granted halves
+ * of one card see each other.  The daemon creates each card's file at
+ * full size and Allocate mounts only the granted cards' files, so the
+ * interposer opens one as it finds it: no symlink is followed, nothing is
+ * created, resized or re-permissioned, and a file that is not a regular
+ * one of the full size is refused.  Without the directory (a tenant
+ * started by hand), or when the card's file is refused, it is
+ * <region>.busy, which the region's own processes share.
+ *
+ * A slot belongs to a random 64-bit token, never to a pid: pids of other
+ * containers collide with this one's and kill() cannot reach them.  Its
+ * holder refreshes a heartbeat (CLOCK_MONOTONIC, one clock for the whole
+ * host) every tick; a slot whose heartbeat is older than kSlotLeaseNs, a
+ * few idle ticks, is free, and claiming one is a compare-and-swap of that
+ * heartbeat.
  *
  * A query is not free: on the card measured, queries every 2 ms slowed
  * the launching thread of a launch-bound tenant (PERF.md).  So the
@@ -949,11 +997,15 @@ static void book(int dev, uint64_t us, uint64_t floor_us) {
  * from the watcher's thread: they are gated, but not metered. */
 static const uint64_t kTickNs = 2000000ull;
 static const uint64_t kIdleTickNs = 50000000ull;
+static const uint64_t kSlotLeaseNs = 4 * kIdleTickNs;
 static const int kTicksPerBooking = 5;
 static const int kBusySlots = VTPU_MAX_PROCS;
 
+/* Mirrored by native/interposer_test.cc. */
 struct BusySlot {
-  int32_t pid;
+  uint64_t owner;   /* the holder's token; 0 while free or being claimed */
+  uint64_t beat_ns; /* the holder's last heartbeat; 0 once released */
+  int32_t pid;      /* the holder's pid in its own namespace: information */
   int32_t pad;
   uint64_t until_ns[VTPU_MAX_DEVICES]; /* busy through (CLOCK_MONOTONIC) */
 };
@@ -965,51 +1017,156 @@ static bool g_watch_stop = false;
 static pthread_t g_watch_thread;
 static std::atomic<bool> g_watch_started{false};
 
-/* The region's busy file, mapped; nullptr when it cannot be (each process
- * then books its whole busy ticks). */
-static BusySlot* open_busy_file() {
-  std::string path = g_q.region + ".busy";
-  int fd = open(path.c_str(), O_RDWR | O_CREAT | O_CLOEXEC, 0666);
-  if (fd < 0) return nullptr;
+/* The busy files this process maps, and which file and column each
+ * device uses.  The watcher thread alone touches them (and stop_watcher,
+ * after joining it). */
+struct BusyFile {
+  BusySlot* slots;  /* kBusySlots, mapped; nullptr when unavailable */
+  int mine;         /* this process's slot, -1 until it claims one */
+};
+static BusyFile g_busy[VTPU_MAX_DEVICES + 1];
+static int g_busy_of[VTPU_MAX_DEVICES];  /* index into g_busy, -1: unopened */
+static int g_col_of[VTPU_MAX_DEVICES];   /* the device's until_ns column */
+static uint64_t g_token = 0;             /* this process's slot owner token */
+
+static uint64_t new_token() {
+  uint64_t t = 0;
+  while (t == 0) {
+    if (getrandom(&t, sizeof(t), 0) != (ssize_t)sizeof(t))
+      t = mono_ns() ^ ((uint64_t)getpid() << 32) ^ (uint64_t)(uintptr_t)&t;
+  }
+  return t;
+}
+
+static void busy_reset() {
+  for (int d = 0; d < VTPU_MAX_DEVICES; d++) g_busy_of[d] = -1;
+  for (BusyFile& f : g_busy) f.mine = -1;
+  g_token = new_token();
+}
+
+/* Map a busy file: the card's (`create` false) as the daemon made it,
+ * or the region's, created here at first use. */
+static BusySlot* map_busy_file(const std::string& path, bool create) {
   const size_t size = sizeof(BusySlot) * kBusySlots;
-  struct stat st;
-  void* p = MAP_FAILED;
-  if (fstat(fd, &st) == 0 &&
-      ((size_t)st.st_size >= size || ftruncate(fd, (off_t)size) == 0))
-    p = mmap(nullptr, size, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
-  close(fd);
-  if (p == MAP_FAILED) {
-    LOG(1, "cannot map %s: co-tenants' time slices are billed to each",
-        path.c_str());
+  int fd = create ? open(path.c_str(), O_RDWR | O_CREAT | O_CLOEXEC, 0666)
+                  : open(path.c_str(), O_RDWR | O_NOFOLLOW | O_CLOEXEC);
+  if (fd < 0) {
+    LOG(1, "cannot open %s (%s)", path.c_str(), strerror(errno));
     return nullptr;
   }
+  struct stat st;
+  void* p = MAP_FAILED;
+  if (fstat(fd, &st) != 0) {
+    LOG(1, "cannot stat %s (%s)", path.c_str(), strerror(errno));
+  } else if (create) {
+    fchmod(fd, 0666);  /* every user's tenants share it (fails for a non-owner) */
+    if ((size_t)st.st_size >= size || ftruncate(fd, (off_t)size) == 0)
+      p = mmap(nullptr, size, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  } else if (!S_ISREG(st.st_mode) || (size_t)st.st_size < size) {
+    LOG(1, "refusing %s: not a regular file of %zu bytes", path.c_str(), size);
+  } else {
+    p = mmap(nullptr, size, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  }
+  close(fd);
+  if (p == MAP_FAILED) {
+    LOG(1, "cannot map %s", path.c_str());
+    return nullptr;
+  }
+  LOG(3, "busy file %s", path.c_str());
   return (BusySlot*)p;
 }
 
-/* This process's slot: its own, or a free one (no pid, or a dead one's). */
-static BusySlot* claim_slot(BusySlot* file) {
-  int32_t me = (int32_t)getpid();
-  for (int i = 0; i < kBusySlots; i++)
-    if (__atomic_load_n(&file[i].pid, __ATOMIC_RELAXED) == me) return &file[i];
+static bool usable_name(const std::string& u) {
+  return !u.empty() && u != "." && u != ".." &&
+         u.find('/') == std::string::npos;
+}
+
+/* The busy file of region device `dev` and its column there: the card's
+ * own file under VTPU_DEVICE_BUSY_DIR (column 0), else the region's
+ * (column dev).  Opened at first use. */
+static BusyFile* busy_file(int dev, int* col) {
+  if (g_busy_of[dev] < 0) {
+    const std::string& uuid = g_q.uuids[dev];
+    if (!g_q.busy_dir.empty() && usable_name(uuid))
+      g_busy[dev].slots =
+          map_busy_file(g_q.busy_dir + "/" + uuid + ".busy", false);
+    if (g_busy[dev].slots != nullptr) {
+      g_busy_of[dev] = dev;
+      g_col_of[dev] = 0;
+    } else {
+      if (!g_q.busy_dir.empty())
+        LOG(1, "device %d has no usable card busy file: it meets only its "
+            "region's processes", dev);
+      g_busy_of[dev] = VTPU_MAX_DEVICES;
+      g_col_of[dev] = dev;
+      static bool mapped = false;
+      if (!mapped) {
+        g_busy[VTPU_MAX_DEVICES].slots =
+            map_busy_file(g_q.region + ".busy", true);
+        mapped = true;
+      }
+    }
+  }
+  *col = g_col_of[dev];
+  return &g_busy[g_busy_of[dev]];
+}
+
+/* This process's slot in `f` with its heartbeat refreshed: the one it
+ * holds, or a free one (never held, released, or its heartbeat lapsed). */
+static BusySlot* claim_slot(BusyFile* f, uint64_t now) {
+  if (f->slots == nullptr) return nullptr;
+  if (f->mine >= 0) {
+    BusySlot* s = &f->slots[f->mine];
+    if (__atomic_load_n(&s->owner, __ATOMIC_ACQUIRE) == g_token) {
+      __atomic_store_n(&s->beat_ns, now, __ATOMIC_RELEASE);
+      return s;
+    }
+    f->mine = -1;  /* it lapsed and another process took it */
+  }
   for (int i = 0; i < kBusySlots; i++) {
-    int32_t owner = __atomic_load_n(&file[i].pid, __ATOMIC_RELAXED);
-    if ((owner == 0 || (kill(owner, 0) != 0 && errno == ESRCH)) &&
-        __atomic_compare_exchange_n(&file[i].pid, &owner, me, false,
-                                    __ATOMIC_ACQ_REL, __ATOMIC_RELAXED))
-      return &file[i];
+    BusySlot* s = &f->slots[i];
+    uint64_t beat = __atomic_load_n(&s->beat_ns, __ATOMIC_ACQUIRE);
+    if (beat != 0 && beat + kSlotLeaseNs >= now) continue;
+    if (!__atomic_compare_exchange_n(&s->beat_ns, &beat, now, false,
+                                     __ATOMIC_ACQ_REL, __ATOMIC_RELAXED))
+      continue;
+    for (int d = 0; d < VTPU_MAX_DEVICES; d++)
+      __atomic_store_n(&s->until_ns[d], 0, __ATOMIC_RELAXED);
+    __atomic_store_n(&s->pid, (int32_t)getpid(), __ATOMIC_RELAXED);
+    __atomic_store_n(&s->owner, g_token, __ATOMIC_RELEASE);
+    f->mine = i;
+    return s;
   }
   return nullptr;
 }
 
+/* Give back every slot this process holds (at exit). */
+static void release_slots() {
+  for (BusyFile& f : g_busy) {
+    if (f.slots == nullptr || f.mine < 0) continue;
+    BusySlot* s = &f.slots[f.mine];
+    for (int d = 0; d < VTPU_MAX_DEVICES; d++)
+      __atomic_store_n(&s->until_ns[d], 0, __ATOMIC_RELAXED);
+    uint64_t me = g_token;
+    if (__atomic_compare_exchange_n(&s->owner, &me, 0, false,
+                                    __ATOMIC_ACQ_REL, __ATOMIC_RELAXED))
+      __atomic_store_n(&s->beat_ns, 0, __ATOMIC_RELEASE);
+    f.mine = -1;
+  }
+}
+
 /* Publish that this process is busy on `dev` through the next ticks, and
- * count the region's processes busy on it now (this one included). */
-static int busy_share(BusySlot* file, int dev, uint64_t now, uint64_t tick) {
-  BusySlot* mine = file ? claim_slot(file) : nullptr;
+ * count the processes busy on its card now (this one included). */
+static int busy_share(int dev, uint64_t now, uint64_t tick) {
+  int col = 0;
+  BusyFile* f = busy_file(dev, &col);
+  BusySlot* mine = claim_slot(f, now);
   if (mine == nullptr) return 1;
-  __atomic_store_n(&mine->until_ns[dev], now + 2 * tick, __ATOMIC_RELAXED);
+  __atomic_store_n(&mine->until_ns[col], now + 2 * tick, __ATOMIC_RELAXED);
   int k = 0;
   for (int i = 0; i < kBusySlots; i++)
-    if (__atomic_load_n(&file[i].until_ns[dev], __ATOMIC_RELAXED) > now) k++;
+    if (__atomic_load_n(&f->slots[i].until_ns[col], __ATOMIC_RELAXED) > now)
+      k++;
   return k > 0 ? k : 1;
 }
 
@@ -1023,7 +1180,7 @@ static void* watch_main(void*) {
     return nullptr;
   }
   g_meter.store(1);
-  BusySlot* file = open_busy_file();
+  busy_reset();
   uint64_t own_ns[VTPU_MAX_DEVICES] = {};
   uint64_t last = mono_ns();
   CUcontext current = nullptr;
@@ -1035,24 +1192,28 @@ static void* watch_main(void*) {
     lk.unlock();
     uint64_t now = mono_ns(), dt = now - last;
     last = now;
-    bool busy[VTPU_MAX_DEVICES] = {};
+    bool busy[VTPU_MAX_DEVICES] = {}, seen[VTPU_MAX_DEVICES] = {};
     int n = std::min(g_nstreams.load(std::memory_order_acquire), kMaxStreams);
     for (int i = 0; i < n; i++) {
       const Stream& s = g_streams[i];
+      seen[s.dev] = true;
       if (busy[s.dev]) continue;
       if (s.ctx != current && set_ctx(s.ctx) == CUDA_SUCCESS) current = s.ctx;
       busy[s.dev] = query(s.stream) == CUDA_ERROR_NOT_READY;
     }
     for (int d = 0; d < VTPU_MAX_DEVICES; d++) {
-      if (!busy[d]) continue;
-      int k = busy_share(file, d, now, tick_ns);
+      if (!seen[d]) continue;
+      if (!busy[d]) {  /* hold the slot: heartbeat only */
+        int col = 0;
+        claim_slot(busy_file(d, &col), now);
+        continue;
+      }
+      int k = busy_share(d, now, tick_ns);
       own_ns[d] += dt / k;
       C.busy_ticks++;
       if (k > 1) C.shared_ticks++;
     }
     if (tick % kTicksPerBooking == 0) {
-      bool seen[VTPU_MAX_DEVICES] = {};
-      for (int i = 0; i < n; i++) seen[g_streams[i].dev] = true;
       for (int d = 0; d < VTPU_MAX_DEVICES; d++) {
         if (!seen[d]) continue;
         book(d, own_ns[d] / 1000, g_floor_us[d].exchange(0));
@@ -1075,6 +1236,7 @@ static void stop_watcher() {
   }
   g_watch_cv.notify_all();
   pthread_join(g_watch_thread, nullptr);
+  release_slots();
 }
 
 static void start_watcher() {

@@ -18,10 +18,16 @@
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
 #include <sys/wait.h>
+#include <fcntl.h>
+#include <errno.h>
+#include <pthread.h>
 #include <time.h>
 #include <unistd.h>
 
+#include <atomic>
 #include <string>
 
 #include "cuda_abi.h"
@@ -514,6 +520,262 @@ static int sc_forward_other() {
   return 0;
 }
 
+/* ---- per-card busy files ------------------------------------------- */
+
+/* Mirror of the interposer's BusySlot; a busy file holds kBusySlots. */
+struct BusySlot {
+  uint64_t owner, beat_ns;
+  int32_t pid, pad;
+  uint64_t until_ns[16];
+};
+static const int kBusySlots = 64;
+static const char kCard[] = "GPU-test-card";
+
+static uint64_t mono_ns() {
+  struct timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return (uint64_t)ts.tv_sec * 1000000000ull + (uint64_t)ts.tv_nsec;
+}
+
+/* A card's busy file at full size, as the daemon stages it. */
+static BusySlot* map_card_file(const std::string& dir) {
+  std::string path = dir + "/" + kCard + ".busy";
+  int fd = open(path.c_str(), O_RDWR | O_CREAT, 0666);
+  CHECK(fd >= 0);
+  size_t size = sizeof(BusySlot) * kBusySlots;
+  CHECK(ftruncate(fd, (off_t)size) == 0);
+  void* p = mmap(nullptr, size, PROT_READ | PROT_WRITE, MAP_SHARED, fd, 0);
+  close(fd);
+  CHECK(p != MAP_FAILED);
+  return (BusySlot*)p;
+}
+
+/* A busy directory beside the region, in the env as Allocate sets it;
+ * with `stage`, the card's file in it as the daemon makes it. */
+static std::string busy_dir_env(bool stage = true) {
+  std::string dir =
+      std::string(getenv("VTPU_DEVICE_MEMORY_SHARED_CACHE")) + ".busy.d";
+  CHECK(mkdir(dir.c_str(), 0777) == 0 || errno == EEXIST);
+  setenv("VTPU_DEVICE_BUSY_DIR", dir.c_str(), 1);
+  setenv("VTPU_DEVICE_MAP", (std::string("0:") + kCard).c_str(), 1);
+  if (stage) map_card_file(dir);
+  return dir;
+}
+
+static void remove_busy_dir(const std::string& dir) {
+  unlink((dir + "/" + kCard + ".busy").c_str());
+  unlink((getenv("VTPU_DEVICE_MEMORY_SHARED_CACHE") + std::string(".busy"))
+             .c_str());
+  rmdir(dir.c_str());
+}
+
+/* The slot this process holds, or -1. */
+static int my_slot(BusySlot* slots) {
+  for (int i = 0; i < kBusySlots; i++)
+    if (__atomic_load_n(&slots[i].pid, __ATOMIC_RELAXED) == getpid() &&
+        __atomic_load_n(&slots[i].owner, __ATOMIC_ACQUIRE) != 0)
+      return i;
+  return -1;
+}
+
+static int sc_busy_dir_pair() {
+  /* Two processes with DIFFERENT regions (as two pods of one card get
+   * from Allocate) and one busy directory, each keeping its mock device
+   * busy all the time: each must book about half of the wall time, as
+   * the card would give each half.  The region's own busy file could not
+   * show them to each other. */
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("MOCK_KERNEL_US", "10000", 1);
+  std::string dir = busy_dir_env();
+  std::string region = getenv("VTPU_DEVICE_MEMORY_SHARED_CACHE");
+  int fds[2];
+  CHECK(pipe(fds) == 0);
+  pid_t child = fork();
+  CHECK(child >= 0);
+  std::string mine = region + (child == 0 ? ".b" : ".a");
+  setenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", mine.c_str(), 1);
+  open_driver();
+  busy_loop(0.6);
+  Stats s0 = stats();
+  double t0 = mono_s();
+  busy_loop(3.0);
+  Stats s1 = stats();
+  double share = (s1.booked_us - s0.booked_us) / ((mono_s() - t0) * 1e6);
+  unlink(mine.c_str());
+  if (child == 0) {
+    double got[2] = {share, (double)s1.shared_ticks};
+    CHECK(write(fds[1], got, sizeof(got)) == (ssize_t)sizeof(got));
+    _exit(0);
+  }
+  double other[2] = {0, 0};
+  CHECK(read(fds[0], other, sizeof(other)) == (ssize_t)sizeof(other));
+  int st = 0;
+  CHECK(waitpid(child, &st, 0) == child && WIFEXITED(st) &&
+        WEXITSTATUS(st) == 0);
+  remove_busy_dir(dir);
+  printf("busy_dir_pair: booked %.3f and %.3f of the wall time, shared "
+         "ticks %llu and %.0f\n", share, other[0],
+         (unsigned long long)s1.shared_ticks, other[1]);
+  CHECK(s1.shared_ticks > 0 && other[1] > 0);
+  CHECK(share > 0.35 && share < 0.65 && other[0] > 0.35 && other[0] < 0.65);
+  return 0;
+}
+
+/* A co-tenant in another container: its slot's heartbeat kept fresh,
+ * busy all the time, under a pid no kill() reaches from here. */
+struct Neighbour {
+  BusySlot* slot;
+  std::atomic<bool> stop{false};
+};
+
+static void* neighbour_main(void* arg) {
+  Neighbour* n = (Neighbour*)arg;
+  while (!n->stop.load()) {
+    uint64_t now = mono_ns();
+    __atomic_store_n(&n->slot->until_ns[0], now + 100000000ull,
+                     __ATOMIC_RELAXED);
+    __atomic_store_n(&n->slot->beat_ns, now, __ATOMIC_RELEASE);
+    usleep(20000);
+  }
+  return nullptr;
+}
+
+static pid_t unreachable_pid() {
+  for (pid_t p = 4194000; p > 1000; p -= 7)
+    if (kill(p, 0) != 0 && errno == ESRCH) return p;
+  CHECK(!"no free pid");
+  return 0;
+}
+
+static int sc_slot_fresh_unreachable() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("MOCK_KERNEL_US", "10000", 1);
+  std::string dir = busy_dir_env();
+  BusySlot* slots = map_card_file(dir);
+  Neighbour n;
+  n.slot = &slots[0];
+  slots[0].owner = 0x5eed5eed5eed5eedull;
+  slots[0].pid = unreachable_pid();
+  slots[0].beat_ns = mono_ns();
+  pthread_t t;
+  CHECK(pthread_create(&t, nullptr, neighbour_main, &n) == 0);
+  open_driver();
+  busy_loop(1.0);  /* five lease periods */
+  int mine = my_slot(slots);
+  Stats s = stats();
+  n.stop = true;
+  pthread_join(t, nullptr);
+  printf("slot_fresh_unreachable: the neighbour (pid %d, unreachable) "
+         "keeps slot 0, this process holds slot %d; shared ticks %llu\n",
+         slots[0].pid, mine, (unsigned long long)s.shared_ticks);
+  CHECK(slots[0].owner == 0x5eed5eed5eed5eedull);
+  CHECK(mine > 0);
+  CHECK(s.shared_ticks > 0 && s.shared_ticks == s.busy_ticks);
+  remove_busy_dir(dir);
+  return 0;
+}
+
+static int sc_slot_lapsed() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("MOCK_KERNEL_US", "10000", 1);
+  std::string dir = busy_dir_env();
+  BusySlot* slots = map_card_file(dir);
+  /* A holder that stopped beating 5 s ago, its last busy mark long past. */
+  slots[0].owner = 0x5eed5eed5eed5eedull;
+  slots[0].pid = getpid() + 1;
+  slots[0].beat_ns = mono_ns() - 5000000000ull;
+  slots[0].until_ns[0] = slots[0].beat_ns;
+  open_driver();
+  busy_loop(0.3);
+  int mine = my_slot(slots);
+  Stats s = stats();
+  printf("slot_lapsed: this process took slot %d; shared ticks %llu\n", mine,
+         (unsigned long long)s.shared_ticks);
+  CHECK(mine == 0 && slots[0].owner != 0x5eed5eed5eed5eedull);
+  CHECK(s.busy_ticks > 0 && s.shared_ticks == 0);
+  remove_busy_dir(dir);
+  return 0;
+}
+
+/* What a co-tenant could plant where a card's busy file goes: the watcher
+ * must leave it alone and meet only its region's processes. */
+static int busy_refused(const char* what, bool symlink_it) {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("MOCK_KERNEL_US", "10000", 1);
+  std::string dir = busy_dir_env(false);
+  std::string card = dir + "/" + kCard + ".busy";
+  std::string victim =
+      std::string(getenv("VTPU_DEVICE_MEMORY_SHARED_CACHE")) + ".victim";
+  const char kText[] = "the victim's bytes\n";
+  int fd = open(victim.c_str(), O_RDWR | O_CREAT | O_TRUNC, 0600);
+  CHECK(fd >= 0 && write(fd, kText, sizeof(kText) - 1) ==
+                       (ssize_t)(sizeof(kText) - 1));
+  close(fd);
+  if (symlink_it)
+    CHECK(symlink(victim.c_str(), card.c_str()) == 0);
+  else
+    CHECK(link(victim.c_str(), card.c_str()) == 0);
+  open_driver();
+  busy_loop(0.3);
+  Stats s = stats();
+  char got[64] = {};
+  fd = open(victim.c_str(), O_RDONLY);
+  CHECK(fd >= 0);
+  ssize_t n = read(fd, got, sizeof(got));
+  close(fd);
+  struct stat st;
+  CHECK(stat(victim.c_str(), &st) == 0);
+  printf("%s: the planted file keeps %zd bytes, mode %o; busy ticks %llu, "
+         "shared %llu\n", what, n, st.st_mode & 07777,
+         (unsigned long long)s.busy_ticks, (unsigned long long)s.shared_ticks);
+  CHECK(n == (ssize_t)(sizeof(kText) - 1) && memcmp(got, kText, n) == 0);
+  CHECK((st.st_mode & 07777) == 0600 && st.st_size == n);
+  CHECK(s.meter == 1 && s.busy_ticks > 0 && s.shared_ticks == 0);
+  unlink(victim.c_str());
+  remove_busy_dir(dir);
+  return 0;
+}
+
+static int sc_busy_symlink() {
+  return busy_refused("busy_symlink", true);
+}
+
+/* A regular file, but short: neither resized nor mapped. */
+static int sc_busy_short() { return busy_refused("busy_short", false); }
+
+static int sc_grant_env() {
+  /* Started under an Allocate grant's env (tests/test_torch_interposer.py
+   * passes it, with the cap it expects in VTPU_TEST_EXPECT_TOTAL): the
+   * quota view is the grant's cap, and the first launch puts this process
+   * in its card's busy file. */
+  const char* want = getenv("VTPU_TEST_EXPECT_TOTAL");
+  const char* dir = getenv("VTPU_DEVICE_BUSY_DIR");
+  const char* map = getenv("VTPU_DEVICE_MAP");
+  CHECK(want && dir && map && strncmp(map, "0:", 2) == 0);
+  open_driver();
+  size_t freeb = 0, total = 0;
+  mem_info(&freeb, &total);
+  CHECK(total == strtoull(want, nullptr, 10) && freeb == total);
+  CHECK(stats().state == 1);
+  CHECK(launch() == CUDA_SUCCESS);
+  /* The daemon staged the file; this process must hold a slot in it. */
+  std::string path = std::string(dir) + "/" + (map + 2) + ".busy";
+  int fd = open(path.c_str(), O_RDONLY);
+  CHECK(fd >= 0);
+  void* p = mmap(nullptr, sizeof(BusySlot) * kBusySlots, PROT_READ,
+                 MAP_SHARED, fd, 0);
+  close(fd);
+  CHECK(p != MAP_FAILED);
+  double t0 = mono_s();
+  int slot = -1;
+  while ((slot = my_slot((BusySlot*)p)) < 0 && mono_s() - t0 < 2)
+    usleep(10000);
+  CHECK(slot >= 0);
+  printf("grant_env: cuMemGetInfo reports the grant's %zu-byte cap; slot %d "
+         "of busy file %s\n", total, slot, path.c_str());
+  return 0;
+}
+
 struct Scenario {
   const char* name;
   int (*fn)();
@@ -535,6 +797,12 @@ static const Scenario kScenarios[] = {
     {"graph", sc_graph, false},
     {"failclosed", sc_failclosed, false},
     {"forward_other", sc_forward_other, false},
+    {"busy_dir_pair", sc_busy_dir_pair, false},
+    {"slot_fresh_unreachable", sc_slot_fresh_unreachable, false},
+    {"slot_lapsed", sc_slot_lapsed, false},
+    {"busy_symlink", sc_busy_symlink, false},
+    {"busy_short", sc_busy_short, false},
+    {"grant_env", sc_grant_env, false},
 };
 
 int main(int argc, char** argv) {

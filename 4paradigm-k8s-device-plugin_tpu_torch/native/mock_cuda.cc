@@ -23,8 +23,20 @@
  * mock's own function of an exported name; mockCalls(name) — calls into
  * it so far; mockIsManaged(ptr); mockUsedBytes(dev), which the NVML mock
  * reports.
+ *
+ * The NVML mock also enumerates its MOCK_CUDA_DEVICES cards as discovery
+ * sees them (discovery/nvml.py): "NVIDIA H100 80GB HBM3", UUID
+ * GPU-mock-<i>, bus 0000:<0x18+i>:00.0, minor i, NUMA node 0 for the
+ * first half and 1 for the rest.  MOCK_NVML_MIG=1 turns MIG on with 7
+ * instances of 1g.10gb a card (MIG-mock-<i>-<j>, 16 SMs, 9856 MiB).
+ * MOCK_NVML_LINKS=pairs joins cards 2k and 2k+1 over NVLink only (default:
+ * every pair, as NVSwitch does); other pairs meet at a NUMA node or
+ * across the system.  Critical XID events are scripted by
+ * MOCK_NVML_XID_FILE: each line "<card> <xid>" is one event, delivered by
+ * nvmlEventSetWait_v2 once.
  */
 #include <dlfcn.h>
+#include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
 #include <time.h>
@@ -425,6 +437,12 @@ static nvmlReturn_t memory(nvmlDevice_t device, unsigned long long* total,
                            unsigned long long* free,
                            unsigned long long* used) {
   unsigned int i = 0;
+  if ((uintptr_t)device >= 0x1000 && getenv("MOCK_NVML_MIG")) {
+    *total = 9856ull << 20;  /* a MIG instance's own memory */
+    *used = 0;
+    *free = *total;
+    return NVML_SUCCESS;
+  }
   if (nvmlDeviceGetIndex(device, &i) != NVML_SUCCESS)
     return NVML_ERROR_INVALID_ARGUMENT;
   auto* used_of = cuda_mock<uint64_t(int)>("mockUsedBytes");
@@ -443,6 +461,242 @@ EXPORT nvmlReturn_t nvmlDeviceGetMemoryInfo_v2(nvmlDevice_t device,
                                                nvmlMemory_v2_t* m) {
   m->reserved = 0;
   return memory(device, &m->total, &m->free, &m->used);
+}
+
+/* ---- discovery -------------------------------------------------------- */
+
+/* Layouts of nvml.h (CUDA 12). */
+struct nvmlPciInfo_t {
+  char busIdLegacy[16];
+  unsigned int domain, bus, device, pciDeviceId, pciSubSystemId;
+  char busId[32];
+};
+struct nvmlDeviceAttributes_t {
+  unsigned int multiprocessorCount, sharedCopyEngineCount,
+      sharedDecoderCount, sharedEncoderCount, sharedJpegCount,
+      sharedOfaCount, gpuInstanceSliceCount, computeInstanceSliceCount;
+  unsigned long long memorySizeMB;
+};
+struct nvmlEventData_t {
+  nvmlDevice_t device;
+  unsigned long long eventType, eventData;
+  unsigned int gpuInstanceId, computeInstanceId;
+};
+typedef struct MockEventSet* nvmlEventSet_t;
+enum {
+  NVML_ERROR_TIMEOUT = 10,
+  NVML_P2P_CAPS_INDEX_NVLINK = 2,
+  NVML_P2P_STATUS_NOT_SUPPORTED = 5,
+  NVML_TOPOLOGY_INTERNAL = 0,
+  NVML_TOPOLOGY_NODE = 40,
+  NVML_TOPOLOGY_SYSTEM = 50,
+  kMigPerCard = 7,
+  kMigBase = 0x1000,
+};
+static const unsigned long long kXidCritical = 0x8;
+
+static bool mig_on() { return env_u64("MOCK_NVML_MIG", 0) != 0; }
+
+/* A MIG instance's handle: kMigBase + 16 * card + instance. */
+static bool mig_of(nvmlDevice_t device, unsigned int* card,
+                   unsigned int* inst) {
+  uintptr_t h = (uintptr_t)device;
+  if (h < kMigBase) return false;
+  *card = (unsigned int)((h - kMigBase) / 16);
+  *inst = (unsigned int)((h - kMigBase) % 16);
+  return *card < ndev() && *inst < kMigPerCard;
+}
+
+static bool card_of(nvmlDevice_t device, unsigned int* card) {
+  unsigned int inst = 0;
+  if (mig_of(device, card, &inst)) return false;
+  return nvmlDeviceGetIndex(device, card) == NVML_SUCCESS;
+}
+
+static nvmlReturn_t put(char* buf, unsigned int len, const std::string& v) {
+  if (buf == nullptr || v.size() + 1 > len) return NVML_ERROR_INSUFFICIENT_SIZE;
+  memcpy(buf, v.c_str(), v.size() + 1);
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetCount_v2(unsigned int* count) {
+  *count = ndev();
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetUUID(nvmlDevice_t device, char* uuid,
+                                      unsigned int length) {
+  unsigned int c = 0, j = 0;
+  char v[64];
+  if (mig_of(device, &c, &j))
+    snprintf(v, sizeof(v), "MIG-mock-%02u-%u", c, j);
+  else if (card_of(device, &c))
+    snprintf(v, sizeof(v), "GPU-mock-%02u", c);
+  else
+    return NVML_ERROR_INVALID_ARGUMENT;
+  return put(uuid, length, v);
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetName(nvmlDevice_t device, char* name,
+                                      unsigned int length) {
+  unsigned int c = 0, j = 0;
+  if (mig_of(device, &c, &j))
+    return put(name, length, "NVIDIA H100 80GB HBM3 MIG 1g.10gb");
+  if (!card_of(device, &c)) return NVML_ERROR_INVALID_ARGUMENT;
+  return put(name, length, "NVIDIA H100 80GB HBM3");
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetPciInfo_v3(nvmlDevice_t device,
+                                            nvmlPciInfo_t* pci) {
+  unsigned int c = 0;
+  if (!card_of(device, &c)) return NVML_ERROR_INVALID_ARGUMENT;
+  memset(pci, 0, sizeof(*pci));
+  pci->bus = 0x18 + c;
+  pci->pciDeviceId = 0x233010de;
+  snprintf(pci->busId, sizeof(pci->busId), "00000000:%02X:00.0", pci->bus);
+  snprintf(pci->busIdLegacy, sizeof(pci->busIdLegacy), "0000:%02X:00.0",
+           pci->bus);
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetMinorNumber(nvmlDevice_t device,
+                                             unsigned int* minor) {
+  unsigned int c = 0;
+  if (!card_of(device, &c)) return NVML_ERROR_INVALID_ARGUMENT;
+  *minor = c;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetNumaNodeId(nvmlDevice_t device,
+                                            unsigned int* node) {
+  unsigned int c = 0;
+  if (!card_of(device, &c)) return NVML_ERROR_INVALID_ARGUMENT;
+  *node = c < ndev() / 2 || ndev() < 2 ? 0 : 1;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetMigMode(nvmlDevice_t device,
+                                         unsigned int* current,
+                                         unsigned int* pending) {
+  unsigned int c = 0;
+  if (!card_of(device, &c)) return NVML_ERROR_INVALID_ARGUMENT;
+  *current = *pending = mig_on() ? 1 : 0;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetMaxMigDeviceCount(nvmlDevice_t device,
+                                                   unsigned int* count) {
+  unsigned int c = 0;
+  if (!card_of(device, &c)) return NVML_ERROR_INVALID_ARGUMENT;
+  *count = mig_on() ? kMigPerCard : 0;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetMigDeviceHandleByIndex(
+    nvmlDevice_t device, unsigned int index, nvmlDevice_t* mig) {
+  unsigned int c = 0;
+  if (!card_of(device, &c)) return NVML_ERROR_INVALID_ARGUMENT;
+  if (!mig_on() || index >= kMigPerCard) return NVML_ERROR_NOT_FOUND;
+  *mig = (nvmlDevice_t)(uintptr_t)(kMigBase + 16 * c + index);
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetAttributes_v2(nvmlDevice_t device,
+                                               nvmlDeviceAttributes_t* a) {
+  unsigned int c = 0, j = 0;
+  if (!mig_of(device, &c, &j)) return NVML_ERROR_NOT_SUPPORTED;
+  memset(a, 0, sizeof(*a));
+  a->multiprocessorCount = 16;
+  a->gpuInstanceSliceCount = a->computeInstanceSliceCount = 1;
+  a->memorySizeMB = 9856;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetP2PStatus(nvmlDevice_t d1, nvmlDevice_t d2,
+                                           int caps, int* status) {
+  unsigned int a = 0, b = 0;
+  if (!card_of(d1, &a) || !card_of(d2, &b)) return NVML_ERROR_INVALID_ARGUMENT;
+  if (caps != NVML_P2P_CAPS_INDEX_NVLINK) return NVML_ERROR_NOT_SUPPORTED;
+  const char* links = getenv("MOCK_NVML_LINKS");
+  bool pairs = links && strcmp(links, "pairs") == 0;
+  *status = a != b && (!pairs || a / 2 == b / 2)
+                ? 0
+                : NVML_P2P_STATUS_NOT_SUPPORTED;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetTopologyCommonAncestor(nvmlDevice_t d1,
+                                                        nvmlDevice_t d2,
+                                                        int* level) {
+  unsigned int a = 0, b = 0;
+  if (!card_of(d1, &a) || !card_of(d2, &b)) return NVML_ERROR_INVALID_ARGUMENT;
+  unsigned int half = ndev() / 2 ? ndev() / 2 : 1;
+  *level = a == b ? NVML_TOPOLOGY_INTERNAL
+           : a / half == b / half ? NVML_TOPOLOGY_NODE
+                                  : NVML_TOPOLOGY_SYSTEM;
+  return NVML_SUCCESS;
+}
+
+/* ---- events ------------------------------------------------------------ */
+
+struct MockEventSet {
+  unsigned long long types[16];
+  size_t delivered;  /* lines of MOCK_NVML_XID_FILE already delivered */
+};
+
+EXPORT nvmlReturn_t nvmlEventSetCreate(nvmlEventSet_t* set) {
+  *set = new MockEventSet();
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlEventSetFree(nvmlEventSet_t set) {
+  delete set;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetSupportedEventTypes(
+    nvmlDevice_t device, unsigned long long* types) {
+  unsigned int c = 0;
+  if (!card_of(device, &c)) return NVML_ERROR_INVALID_ARGUMENT;
+  *types = 0xff9f;
+  return NVML_SUCCESS;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceRegisterEvents(nvmlDevice_t device,
+                                             unsigned long long types,
+                                             nvmlEventSet_t set) {
+  unsigned int c = 0;
+  if (!card_of(device, &c) || set == nullptr)
+    return NVML_ERROR_INVALID_ARGUMENT;
+  set->types[c] |= types;
+  return NVML_SUCCESS;
+}
+
+/* The next scripted event of a registered card, if any (the timeout is
+ * not waited: the script is read as it stands). */
+EXPORT nvmlReturn_t nvmlEventSetWait_v2(nvmlEventSet_t set,
+                                        nvmlEventData_t* data,
+                                        unsigned int) {
+  const char* path = getenv("MOCK_NVML_XID_FILE");
+  FILE* f = path ? fopen(path, "r") : nullptr;
+  if (f == nullptr) return (nvmlReturn_t)NVML_ERROR_TIMEOUT;
+  unsigned int card = 0;
+  unsigned long long xid = 0;
+  size_t line = 0;
+  nvmlReturn_t r = (nvmlReturn_t)NVML_ERROR_TIMEOUT;
+  while (fscanf(f, "%u %llu", &card, &xid) == 2) {
+    if (line++ < set->delivered) continue;
+    set->delivered = line;
+    if (card >= ndev() || !(set->types[card] & kXidCritical)) continue;
+    memset(data, 0, sizeof(*data));
+    data->device = (nvmlDevice_t)(uintptr_t)(card + 1);
+    data->eventType = kXidCritical;
+    data->eventData = xid;
+    r = NVML_SUCCESS;
+    break;
+  }
+  fclose(f);
+  return r;
 }
 
 #endif /* MOCK_LIB_NVML */

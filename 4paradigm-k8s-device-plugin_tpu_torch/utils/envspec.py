@@ -44,11 +44,39 @@ ENV_RUNTIME_SOCKET = "VTPU_RUNTIME_SOCKET"
 # Floor charge per execute step, µs: keeps throttling meaningful when
 # measured step times are tiny or optimistic.
 ENV_MIN_EXEC_COST = "VTPU_MIN_EXEC_COST_US"
+# Floors by card model.  vtpu injects 150-200 µs per TPU generation
+# because its broker's cost average drifted toward 0; the port's
+# interposer meters each process's real busy time instead, and would
+# charge a floor on every launch (a Llama-3-8B serving step makes 1560),
+# so no H100 model has a default.  An operator value on the daemon still
+# wins.
+MIN_EXEC_COST_US_DEFAULTS: Dict[str, int] = {}
+
+
+def min_exec_cost_default(model: str) -> Optional[str]:
+    """Floor value (µs, as env string) for a card model, or None when the
+    model has none (every H100)."""
+    us = MIN_EXEC_COST_US_DEFAULTS.get(model)
+    return None if us is None else str(us)
+
+
 # Log level: 0=errors .. 4=debug.
 ENV_LOG_LEVEL = "VTPU_LOG_LEVEL"
+# PCI inventory file the daemon writes and mounts into each container
+# (the reference's pciinfo.vgpu).
+ENV_PCIBUS_FILE = "VTPU_PCIINFO_FILE"
+# Directory of the per-card busy files (``<uuid>.busy``) in which the
+# interposers of every pod on a card share its time slices; the daemon
+# makes the files and Allocate mounts each granted card's there.
+ENV_DEVICE_BUSY_DIR = "VTPU_DEVICE_BUSY_DIR"
 # Under the device-specs list strategy the daemon mounts one file per
 # visible device into this directory, named `<ordinal>_<id>`.
 DEVICE_LIST_DIR = "/var/run/vtpu-devices"
+# The container runtime's names: the cards (UUIDs, indices, or MIG UUIDs)
+# the container sees, and the directory its volume-mounts strategy lists
+# instead of the variable's value (reference server.go:469-471, 565-581).
+ENV_NVIDIA_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"
+NVIDIA_DEVICE_LIST_DIR = "/var/run/nvidia-container-devices"
 
 # Hard cap mirrored in native/vtpucore (VTPU_MAX_DEVICES).
 MAX_DEVICES_PER_NODE = 16
@@ -69,6 +97,11 @@ def parse_quantity(value: str) -> int:
         raise ValueError(f"invalid device memory limit {value!r}")
     number, suffix = m.group(1), m.group(2).lower()
     return int(float(number) * _MULTIPLIERS[suffix])
+
+
+def format_quantity_mb(nbytes: int) -> str:
+    """Render bytes as the reference's `<N>m` megabyte convention."""
+    return f"{nbytes // 10**6}m"
 
 
 def _parse_bool(value: Optional[str]) -> bool:

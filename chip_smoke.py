@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs seven phases, each of which asserts; any failure exits non-zero
+then runs eight phases, each of which asserts; any failure exits non-zero
 and prints no result line.
 
 1. Device: the card's name and power limit, the versions, the build (the
@@ -42,6 +42,16 @@ and prints no result line.
    at 50% FORCE, and two processes at 50% FORCE on one region, each
    serving for at least 8 s, metered by the interposer's watcher (each
    process's busy time, shared among the region's busy processes).
+8. The device-plugin daemon: NVML discovery held against nvidia-smi and
+   torch (UUID, memory, SM count), procfs where the container has it, a
+   health probe; the card split in two and one Allocate grant for each
+   half (two private regions, one busy file for the card, made as the
+   daemon makes it); then tenants started with exactly each grant's env
+   serve the bench config, one alone and both at once, each checking its
+   cap and the sm90 route, and the pair again without the busy files
+   (information: the metering before the per-card busy file).  The pair's
+   rates and booked device time a step are held against the solo
+   grant's.  No grpc is imported.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last is ``{"ok": true, "device": {...}}``.
@@ -749,17 +759,24 @@ def run_metered(quota, n, tmp, name):
     from vtpu_torch.shim import interposer
 
     region = os.path.join(tmp, f"{name}.shr")
-    go = os.path.join(tmp, f"{name}.go")
     env = interposer.tenant_env(dict(
         quota, VTPU_DEVICE_MEMORY_SHARED_CACHE=region))
+    return run_released([env] * n, "metered", tmp, name)
+
+
+def run_released(envs, mode, tmp, name):
+    """One ``--child <mode> <go>`` tenant per environment; each reports
+    READY after its warm-up, then all are released together by the go
+    file.  Returns their RESULT dicts."""
+    go = os.path.join(tmp, f"{name}.go")
     # stderr goes to a file: a pipe nobody reads could fill and stall the
     # tenant, and a tenant that dies early is reported with its traceback.
     errs = [open(os.path.join(tmp, f"{name}.{i}.err"), "w+")
-            for i in range(n)]
+            for i in range(len(envs))]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--child", "metered", go], env=env,
+                               "--child", mode, go], env=env,
                               stdout=subprocess.PIPE, stderr=err, text=True)
-             for err in errs]
+             for env, err in zip(envs, errs)]
 
     def stderr_of(i):
         if procs[i].poll() is None:
@@ -831,15 +848,242 @@ def phase_metered(tmp):
           "the 50% share never held the tenant back")
 
 
+# -- phase 8: the device-plugin daemon's discovery and grants ----------------
+
+# The card is split in two, as --device-split-count 2 does.
+PLUGIN_SPLIT = 2
+# The container path of a grant's interposer mount (ld.so.preload names
+# it).  No container is made here: a tenant gets the host path instead.
+PRELOAD_MOUNT = "/usr/local/vtpu/libvtpu_cuda.so"
+# Each of two pods granted halves of the card, running at once, against
+# one such pod alone: a pod holds its own 50% share beside the other.
+# Below 0.65 it is starved of it (metering by region files alone, where
+# each pod books the other's time slices as its own, gave 0.54-0.58 on an
+# H100: PERF.md).  Phase 7's band (0.30-0.70 each) is for two tenants that
+# share ONE bucket, and does not apply to two pods with a bucket each.
+SHARED_GRANT_BAND = (0.65, 1.05)
+# The device time each of those pods books a step, against the solo pod's
+# in the same run.  The card switching between the two makes a step cost
+# more device time than alone (1.17-1.31 on an H100); a pod booking the
+# other's slices as its own books 1.73-1.87 (region files alone), and one
+# that under-bills (each tick divided among more pods than are busy)
+# books less than alone (PERF.md).  This reading tells the faults apart
+# where the rate cannot: two pods that fill the card are rarely gated.
+SHARED_BOOKED_BAND = (1.0, 1.5)
+
+
+def granted_child(torch, go):
+    """Phase 8, inside a tenant started with one grant's env: its cap is
+    what mem_get_info reports, then the bench config is served as in
+    phase 7, and every attention launch must take the sm90 route."""
+    from vtpu_torch.ops import flash_attention as fa
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.utils.envspec import parse_quantity
+
+    check(interposer.loaded(), "the interposer is not in the tenant")
+    cap = parse_quantity(os.environ["VTPU_DEVICE_HBM_LIMIT_0"])
+    free, total = torch.cuda.mem_get_info()
+    check(total == cap, f"mem_get_info total {total} is not the grant's "
+          f"cap {cap}")
+    fa.flash_attention.launches = 0
+    fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+    res = metered_child(torch, go)
+    res["launches_by_route"] = dict(fa.flash_attention.route_launches)
+    check(fa.flash_attention.launches > 0 and
+          fa.flash_attention.launches == res["launches_by_route"]["sm90"],
+          f"attention launches off the sm90 route: "
+          f"{res['launches_by_route']}")
+    res["mem_get_info"] = [free, total]
+    return res
+
+
+def tenant_env_of(g, region):
+    """A tenant's environment from grant ``g``: the grant's env, with the
+    host paths of what the container would have mounted (the interposer
+    library in LD_PRELOAD, as the ld.so.preload mount would load it; the
+    directory of the card busy files), and its region in ``region`` (a
+    container's /tmp is its own)."""
+    from vtpu_torch.utils import envspec
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("VTPU_", "LD_PRELOAD"))}
+    env.update(g.envs)
+    host_of = {m.container_path: m.host_path for m in g.mounts}
+    env["LD_PRELOAD"] = host_of[PRELOAD_MOUNT]
+    busy = g.envs.get(envspec.ENV_DEVICE_BUSY_DIR)
+    if busy is not None:
+        dirs = {os.path.dirname(h) for c, h in host_of.items()
+                if os.path.dirname(c) == busy}
+        check(len(dirs) == 1, f"the grant's busy files lie in {dirs}")
+        env[envspec.ENV_DEVICE_BUSY_DIR] = dirs.pop()
+    env[envspec.ENV_SHARED_CACHE] = region
+    return env
+
+
+def phase_plugin(torch, tmp):
+    from vtpu_torch.discovery.factory import make_backend
+    from vtpu_torch.plugin.config import Config
+    from vtpu_torch.plugin.grant import (grant, stage_busy_files,
+                                         staged_files)
+    from vtpu_torch.plugin.split import build_plugin_specs
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.shim.core import SharedRegion
+    from vtpu_torch.utils import envspec
+
+    # Discovery through NVML, held against nvidia-smi and torch.
+    nvml = make_backend("nvml")
+    chips = nvml.chips()
+    check(len(chips) == torch.cuda.device_count() == 1,
+          f"NVML found {len(chips)} cards")
+    chip = chips[0]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=uuid,memory.total",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    smi_uuid, smi_mib = (x.strip() for x in smi.stdout.split(","))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"discovery nvml: {chip.model} uuid {chip.uuid} (nvidia-smi "
+        f"{smi_uuid}), {chip.hbm_bytes} B (nvidia-smi {smi_mib} MiB), "
+        f"{chip.sm_count} SMs from {nvml.sm_source} (torch {sms}), minor "
+        f"{chip.minor}, bus {chip.pci_bus_id}, NUMA {chip.numa_node}, MIG "
+        f"{'on' if chip.mig_enabled else 'off'}, links "
+        f"{nvml.topology().links}")
+    check(chip.uuid == smi_uuid, "NVML's UUID is not nvidia-smi's")
+    check(chip.hbm_bytes // 2**20 == int(smi_mib),
+          "NVML's memory total is not nvidia-smi's")
+    check(chip.sm_count == sms and nvml.sm_source == "torch",
+          f"SM count {chip.sm_count} ({nvml.sm_source}) != {sms}")
+    probes = []
+    for _ in range(2):   # the first also creates the XID event set
+        t0 = time.perf_counter()
+        reason = nvml.probe(chip)
+        probes.append((time.perf_counter() - t0) * 1e3)
+        check(reason is None, f"the healthy card probes unhealthy: {reason}")
+    say(f"discovery nvml: the healthy card probes healthy; first probe "
+        f"{probes[0]:.3f} ms, then {probes[1]:.3f} ms")
+    gpus = "/proc/driver/nvidia/gpus"
+    if os.path.isdir(gpus) and os.listdir(gpus):
+        proc = make_backend("procfs").chips()
+        check([(c.uuid, c.pci_bus_id) for c in proc]
+              == [(chip.uuid, chip.pci_bus_id)],
+              f"procfs disagrees with NVML: {proc}")
+        say(f"discovery procfs: {proc[0].uuid} bus {proc[0].pci_bus_id}, "
+            "as NVML")
+    else:
+        say(f"discovery procfs: LEFT OUT: {gpus} is absent in this "
+            "container, so the procfs backend has nothing to read")
+
+    # Split and grant.
+    host = os.path.join(tmp, "host")
+    staged_files(host, interposer.library_path())
+    stage_busy_files(host, [chip.uuid])   # as the daemon does at start
+    cfg = Config(device_split_count=PLUGIN_SPLIT, host_lib_dir=host)
+    spec, = build_plugin_specs(cfg, nvml)
+    check([(v.hbm_bytes, v.core_pct) for v in spec.vdevices]
+          == [(chip.hbm_bytes // 2, 50)] * 2, "split 2: "
+          f"{[(v.id, v.hbm_bytes, v.core_pct) for v in spec.vdevices]}")
+    if not chip.mig_enabled:
+        try:
+            build_plugin_specs(Config(split_strategy="core"), nvml)
+            raise Failed("the core strategy accepted a card without MIG")
+        except RuntimeError as e:
+            say(f"split core on a card without MIG: refused ({e})")
+    grants = [grant(cfg, spec, [v], [v.id]) for v in spec.vdevices]
+    for g in grants:
+        say("grant: " + json.dumps({"envs": g.envs, "mounts": [
+            m.__dict__ for m in g.mounts]}))
+        check(g.envs[envspec.ENV_CORE_LIMIT] == "50"
+              and g.envs[envspec.ENV_UTILIZATION_POLICY] == "FORCE"
+              and envspec.ENV_MIN_EXEC_COST not in g.envs, "grant env")
+        check(PRELOAD_MOUNT in [m.container_path for m in g.mounts]
+              and "/etc/ld.so.preload" in [m.container_path
+                                           for m in g.mounts],
+              "the grant does not mount the interposer")
+    regions = {g.envs[envspec.ENV_SHARED_CACHE] for g in grants}
+    busy = {(g.envs.get(envspec.ENV_DEVICE_BUSY_DIR), m.container_path,
+             m.host_path, m.read_only)
+            for g in grants for m in g.mounts if "busy" in m.container_path}
+    check(len(regions) == 2 and len(busy) == 1
+          and next(iter(busy))[1].endswith(f"/{chip.uuid}.busy"),
+          f"two grants: regions {regions}, busy files {busy}")
+
+    # Two pods: each tenant with exactly its grant's env.
+    def run(name, which, busy_dir=True):
+        envs = []
+        for i in which:
+            env = tenant_env_of(grants[i], os.path.join(tmp,
+                                                        f"{name}.{i}.shr"))
+            if not busy_dir:
+                del env[envspec.ENV_DEVICE_BUSY_DIR]
+            envs.append(env)
+        rows = run_released(envs, "granted", tmp, name)
+        for i in which:
+            with SharedRegion(os.path.join(tmp, f"{name}.{i}.shr")) as reg:
+                reg.active_procs()   # sweeps the slots of exited processes
+                used = reg.device_stats(0).used_bytes
+            check(used == 0, f"{name}: region {i} holds {used} bytes after "
+                  "its tenant exited")
+        for r in rows:
+            r["booked_us_per_step"] = r["booked_us"] / max(
+                r["steps_per_s"] * r["wall_s"], 1)
+        say(f"plugin {name}: " + json.dumps(rows))
+        return rows
+
+    solo = run("grant_solo", [0])[0]
+    pair = run("grant_pair", [0, 1])
+    old = run("grant_pair_region_files", [0, 1], busy_dir=False)
+    base = solo["steps_per_s"]
+
+    def line(rows):
+        rates = [r["steps_per_s"] for r in rows]
+        return (", ".join(f"{r:.2f} ({r / base:.3f})" for r in rates)
+                + f", together {sum(rates) / base:.3f}; booked us/step "
+                + ", ".join(f"{r['booked_us_per_step']:.0f}" for r in rows)
+                + "; shared ticks "
+                + ", ".join(str(r["shared_ticks"]) for r in rows))
+    say(f"plugin two grants (bench b={TENANT_SHAPE[0]} s={TENANT_SHAPE[1]}, "
+        f"{METERED_S} s each): solo {base:.2f} steps/s, booked us/step "
+        f"{solo['booked_us_per_step']:.0f}; pair, per-card busy file: "
+        f"{line(pair)}; pair, region files only (information): "
+        f"{line(old)}")
+    check(all(r["meter"] == 1 and r["booked_us"] > 0
+              for r in [solo, *pair, *old]), "a tenant was not metered")
+    check(all(r["shared_ticks"] > 0 for r in pair),
+          "the two grants never saw each other busy on the card")
+    # Each pod owns a 50% bucket, so beside the other it should hold its
+    # whole share: about the solo grant's rate, less the card's cost of
+    # switching between the two.  Booking the other pod's slices as its
+    # own (region files only) held each to 0.57-0.58 (PERF.md).
+    rates = [r["steps_per_s"] / base for r in pair]
+    check(all(SHARED_GRANT_BAND[0] <= x <= SHARED_GRANT_BAND[1]
+              for x in rates),
+          f"shared grants at {rates} of the solo grant's rate (band "
+          f"{SHARED_GRANT_BAND} each)")
+    booked = [r["booked_us_per_step"] / solo["booked_us_per_step"]
+              for r in pair]
+    say(f"plugin two grants: booked device time a step of each against the "
+        f"solo grant's: {', '.join(f'{x:.3f}' for x in booked)}; region "
+        "files only (information): " + ", ".join(
+            f"{r['booked_us_per_step'] / solo['booked_us_per_step']:.3f}"
+            for r in old))
+    check(all(SHARED_BOOKED_BAND[0] <= x <= SHARED_BOOKED_BAND[1]
+              for x in booked),
+          f"shared grants booked {booked} of the solo grant's device time a "
+          f"step (band {SHARED_BOOKED_BAND})")
+
+
 def child_main(args):
-    """``--child serve`` (phase 6) or ``--child metered <go file>`` (phase
-    7): one interposed tenant; prints its RESULT line."""
+    """``--child serve`` (phase 6), ``--child metered <go file>`` (phase
+    7) or ``--child granted <go file>`` (phase 8): one interposed tenant;
+    prints its RESULT line."""
     import torch
 
     sys.path.insert(0, REPO)
     try:
         if args[0] == "serve":
             res = interposed_serve_child(torch)
+        elif args[0] == "granted":
+            res = granted_child(torch, args[1])
         else:
             res = metered_child(torch, args[1])
     except Failed as e:
@@ -872,6 +1116,7 @@ def main():
             phase_tenants(tmp)
             phase_interposed(torch, tmp, direct)
             phase_metered(tmp)
+            phase_plugin(torch, tmp)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

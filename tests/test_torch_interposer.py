@@ -16,6 +16,7 @@ import pytest
 
 from vtpu.utils import envspec as jenv
 from vtpu_torch.ops import _build
+from vtpu_torch.plugin.grant import BUSY_FILE_BYTES
 from vtpu_torch.shim import interposer
 from vtpu_torch.shim.core import SharedRegion
 
@@ -30,6 +31,12 @@ SCENARIOS = [
     ("spill", 0), ("killer", -9), ("procaddr", 0), ("meminfo_nvml", 0),
     ("vmm", 0), ("launch_ex", 0), ("graph", 0), ("failclosed", 0),
     ("forward_other", 0),
+    # Per-card busy files: two regions on one card, and slot ownership by
+    # token and heartbeat rather than pid.
+    ("busy_dir_pair", 0), ("slot_fresh_unreachable", 0), ("slot_lapsed", 0),
+    # A planted symlink or a short file where a card's busy file goes is
+    # neither followed nor written.
+    ("busy_symlink", 0), ("busy_short", 0),
 ]
 
 
@@ -69,6 +76,47 @@ def test_scenario(native, tmp_path, name, status):
         assert f"scenario {name}: OK" in r.stdout
 
 
+def test_grant_env_reports_the_grant_cap(native, tmp_path):
+    """A tenant started with exactly an Allocate grant's env (vtpu_torch.
+    plugin.grant, split 2 of a fake H100; LD_PRELOAD and the busy directory
+    at their host paths, as no container mounts them here) sees the
+    grant's cap in cuMemGetInfo and meets its card's busy file."""
+    from vtpu_torch.discovery.fake import FakeChipBackend
+    from vtpu_torch.plugin.config import Config
+    from vtpu_torch.plugin.grant import (grant, stage_busy_files,
+                                         staged_files)
+    from vtpu_torch.plugin.split import build_plugin_specs
+    from vtpu_torch.utils.envspec import parse_quantity
+
+    paths, mocks = native
+    host = tmp_path / "host"
+    staged = staged_files(str(host), paths["vtpu_cuda"])
+    backend = FakeChipBackend(1)
+    stage_busy_files(str(host), [c.uuid for c in backend.chips()])
+    cfg = Config(host_lib_dir=str(host), device_split_count=2)
+    spec = build_plugin_specs(cfg, backend)[0]
+    g = grant(cfg, spec, spec.vdevices[1:], [spec.vdevices[1].id])
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("VTPU_", "MOCK_", "LD_"))}
+    env.update(g.envs)
+    by_cpath = {m.container_path: m.host_path for m in g.mounts}
+    env["LD_PRELOAD"] = by_cpath["/usr/local/vtpu/libvtpu_cuda.so"]
+    assert env["LD_PRELOAD"] == staged["libvtpu_cuda.so"]
+    card = os.path.join(g.envs["VTPU_DEVICE_BUSY_DIR"],
+                        "GPU-fake-h100-00.busy")
+    env["VTPU_DEVICE_BUSY_DIR"] = os.path.dirname(by_cpath[card])
+    env["VTPU_DEVICE_MEMORY_SHARED_CACHE"] = str(tmp_path / "region.cache")
+    cap = parse_quantity(g.envs["VTPU_DEVICE_HBM_LIMIT_0"])
+    env.update(LD_LIBRARY_PATH=mocks, VTPU_TEST_EXPECT_TOTAL=str(cap))
+    r = subprocess.run([paths["interposer_test"], "grant_env"], env=env,
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "scenario grant_env: OK" in r.stdout
+    assert cap == 42_760_000_000
+    assert (host / "busy" / "GPU-fake-h100-00.busy").stat().st_size == \
+        BUSY_FILE_BYTES
+
+
 # Quota envs for the parity test: quantities, per-device overrides,
 # policies, flags, and values envspec rejects.
 QUOTAS = [
@@ -91,6 +139,10 @@ QUOTAS = [
     {"VTPU_DEVICE_HBM_LIMIT_16": "1Gi"},
     {"VTPU_DEVICE_HBM_LIMIT_x": "1Gi"},
     {"VTPU_DEVICE_CORE_LIMIT": "half"},
+    {"VTPU_DEVICE_HBM_LIMIT_0": "1Gi", "VTPU_DEVICE_MAP": "0:GPU-a 1:GPU-b",
+     "VTPU_DEVICE_BUSY_DIR": "/usr/local/vtpu/busy"},
+    {"VTPU_DEVICE_HBM_LIMIT_0": "1Gi", "VTPU_DEVICE_MAP": "0GPU-a"},
+    {"VTPU_DEVICE_HBM_LIMIT_0": "1Gi", "VTPU_DEVICE_MAP": "x:GPU-a"},
 ]
 POLICIES = {"DEFAULT": 0, "FORCE": 1, "DISABLE": 2}
 
