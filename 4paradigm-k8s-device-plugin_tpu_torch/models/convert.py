@@ -7,6 +7,11 @@ drawn anew, placed tensor by tensor on the caller's device.
 - ``init_module(cfg, generator, device)`` draws weights with the same
   shapes, scales and dtypes as ``init_params`` (norms f32, everything else
   ``cfg.dtype``) from a ``torch.Generator``; the numbers differ from JAX's.
+- ``params_to_numpy(model)`` is the way back: the pytree's names and
+  nesting, bf16 as numpy's ``bfloat16``, a sharded weight gathered whole.
+
+Weights are frozen (``requires_grad`` False) for serving; ``trainable``
+makes them leaves of autograd for ``transformer.make_train_step``.
 
 With an enforcer, every tensor is admitted against the HBM quota before
 it is allocated and its charge is tied to the parameter's lifetime.
@@ -20,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from ..shim.pyshim import TorchEnforcer
 from .transformer import Transformer, TransformerConfig, param_shapes
@@ -42,9 +48,20 @@ def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``t``'s bits as a numpy array; ``torch.bfloat16`` maps to numpy's
+    ``bfloat16`` extension type (from ``ml_dtypes``, imported only then)."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
 def _fill(cfg: TransformerConfig, device, enforcer: Optional[TorchEnforcer],
-          make: Callable[[str, Tuple[int, ...], torch.dtype], torch.Tensor]
-          ) -> Transformer:
+          make: Callable[[str, Tuple[int, ...], torch.dtype], torch.Tensor],
+          trainable: bool = False) -> Transformer:
     """Build the module and fill each weight with ``make(name, shape,
     dtype)`` on ``device``, admitting it first under ``enforcer``."""
     model = Transformer(cfg)
@@ -61,7 +78,7 @@ def _fill(cfg: TransformerConfig, device, enforcer: Optional[TorchEnforcer],
             raise
         owner_path, _, leaf = name.rpartition(".")
         owner = model.get_submodule(owner_path) if owner_path else model
-        p = nn.Parameter(t, requires_grad=False)
+        p = nn.Parameter(t, requires_grad=trainable)
         setattr(owner, leaf, p)
         if enforcer is not None:
             enforcer.track(p, nbytes, dev)
@@ -70,8 +87,8 @@ def _fill(cfg: TransformerConfig, device, enforcer: Optional[TorchEnforcer],
 
 def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig,
                       device="cpu",
-                      enforcer: Optional[TorchEnforcer] = None
-                      ) -> Transformer:
+                      enforcer: Optional[TorchEnforcer] = None,
+                      trainable: bool = False) -> Transformer:
     """The module holding ``tree``'s weights on ``device``."""
     flat = _flatten(tree)
     want = {name for name, _, _ in param_shapes(cfg)}
@@ -86,12 +103,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: TransformerConfig,
                              f"want {shape} {dtype}")
         return t.to(device)
 
-    return _fill(cfg, device, enforcer, make)
+    return _fill(cfg, device, enforcer, make, trainable)
 
 
 def init_module(cfg: TransformerConfig, generator: torch.Generator,
-                device="cuda",
-                enforcer: Optional[TorchEnforcer] = None) -> Transformer:
+                device="cuda", enforcer: Optional[TorchEnforcer] = None,
+                trainable: bool = False) -> Transformer:
     """Random weights with ``init_params``' shapes, scales and dtypes,
     drawn on ``device`` from ``generator`` (which must live there)."""
 
@@ -105,4 +122,19 @@ def init_module(cfg: TransformerConfig, generator: torch.Generator,
                         device=device)
         return w.mul_(scale).to(dtype)
 
-    return _fill(cfg, device, enforcer, make)
+    return _fill(cfg, device, enforcer, make, trainable)
+
+
+def params_to_numpy(model: Transformer) -> Dict[str, Any]:
+    """``model``'s weights as ``vtpu``'s pytree of numpy arrays (the
+    reverse of ``params_from_numpy``).  A DTensor weight is gathered with
+    ``full_tensor()``, a collective: every rank of its mesh must call."""
+    tree: Dict[str, Any] = {"layers": [{} for _ in model.layers]}
+    for name, p in model.named_parameters():
+        t = p.full_tensor() if isinstance(p, DTensor) else p
+        path = name.split(".")
+        if path[0] == "layers":
+            tree["layers"][int(path[1])][path[2]] = tensor_to_numpy(t)
+        else:
+            tree[name] = tensor_to_numpy(t)
+    return tree

@@ -36,12 +36,19 @@
  * compiled in unchanged) that vtpu's tools and the port's pyshim read:
  *
  *   memory   cuMemAlloc_v2, cuMemAllocPitch_v2, cuMemAllocManaged,
- *            cuMemAllocAsync, cuMemAllocFromPoolAsync, cuMemCreate are
- *            charged BEFORE the real allocator runs and refused with
+ *            cuMemAllocAsync, cuMemAllocFromPoolAsync, cuMemCreate, the
+ *            CUDA arrays (cuArrayCreate_v2, cuArray3DCreate_v2,
+ *            cuMipmappedArrayCreate, sized from their descriptors) and
+ *            graph memory nodes (cuGraphAddMemAllocNode, cuGraphAddNode)
+ *            are charged BEFORE the real allocator runs and refused with
  *            CUDA_ERROR_OUT_OF_MEMORY past the cap (VTPU_ACTIVE_OOM_KILLER:
  *            SIGKILL instead; VTPU_OVERSUBSCRIBE: a synchronous allocation
  *            past the cap is made managed instead, uncharged — vtpu's host
- *            spill).  cuMemFree_v2, cuMemFreeAsync, cuMemRelease release.
+ *            spill).  cuMemFree_v2, cuMemFreeAsync, cuMemRelease,
+ *            cuArrayDestroy and cuMipmappedArrayDestroy release; a memory
+ *            node's charge lasts as long as its graph, the executable
+ *            graphs made from it (cuGraphInstantiate*, cuGraphExecDestroy)
+ *            and the allocations their launches left live.
  *            The device is the current context's (cuMemAlloc takes none).
  *            PyTorch's caching allocator calls cudaMalloc once per
  *            segment (cuMemCreate per chunk with expandable segments), so
@@ -69,7 +76,9 @@
  *            the granted cards'), so co-tenants of a card in other
  *            regions and other containers are seen; without the
  *            directory, the processes of one region meet in
- *            <region>.busy.
+ *            <region>.busy.  A launch on a thread's per-thread default
+ *            stream, which no other thread can query, is followed by an
+ *            event that the watcher queries instead.
  *
  * A quota env with no usable region (unopenable path, incompatible
  * layout, a value that does not parse) fails CLOSED: every hooked
@@ -111,6 +120,7 @@
 #include <mutex>
 #include <string>
 #include <unordered_map>
+#include <vector>
 
 #include "cuda_abi.h"
 #include "vtpu_core.h"
@@ -172,6 +182,10 @@ struct Real {
   std::atomic<fn_cuCtxSetCurrent*> cuCtxSetCurrent{nullptr};
   std::atomic<fn_cuStreamQuery*> cuStreamQuery{nullptr};
   std::atomic<fn_cuMemAllocManaged*> cuMemAllocManaged{nullptr};
+  std::atomic<fn_cuEventCreate*> cuEventCreate{nullptr};
+  std::atomic<fn_cuEventRecord*> cuEventRecord{nullptr};
+  std::atomic<fn_cuEventQuery*> cuEventQuery{nullptr};
+  std::atomic<fn_cuEventDestroy_v2*> cuEventDestroy{nullptr};
 };
 static Real R;
 
@@ -217,6 +231,11 @@ static void resolve_reals(int lib) {
     R.cuStreamQuery.store((fn_cuStreamQuery*)real_dlsym()(h, "cuStreamQuery"));
     R.cuMemAllocManaged.store(
         (fn_cuMemAllocManaged*)real_dlsym()(h, "cuMemAllocManaged"));
+    R.cuEventCreate.store((fn_cuEventCreate*)real_dlsym()(h, "cuEventCreate"));
+    R.cuEventRecord.store((fn_cuEventRecord*)real_dlsym()(h, "cuEventRecord"));
+    R.cuEventQuery.store((fn_cuEventQuery*)real_dlsym()(h, "cuEventQuery"));
+    R.cuEventDestroy.store(
+        (fn_cuEventDestroy_v2*)real_dlsym()(h, "cuEventDestroy_v2"));
   }
   dlclose(h);
   done[lib].store(true, std::memory_order_release);
@@ -535,6 +554,9 @@ static std::mutex g_mem_mu;
 static auto* g_ptrs = new std::unordered_map<CUdeviceptr, Charge>();
 static auto* g_handles =
     new std::unordered_map<CUmemGenericAllocationHandle, Charge>();
+static auto* g_arrays = new std::unordered_map<CUarray, Charge>();
+static auto* g_mipmaps = new std::unordered_map<CUmipmappedArray, Charge>();
+static auto* g_nodes = new std::unordered_map<CUgraphNode, Charge>();
 
 static CUresult oom(int dev, uint64_t bytes) {
   uint64_t freeb = 0, total = 0;
@@ -624,6 +646,22 @@ enum HookId {
   H_cuMemFreeAsync,
   H_cuMemFreeAsync_ptsz,
   H_cuMemRelease,
+  H_cuArrayCreate_v2,
+  H_cuArray3DCreate_v2,
+  H_cuMipmappedArrayCreate,
+  H_cuArrayDestroy,
+  H_cuMipmappedArrayDestroy,
+  H_cuGraphAddMemAllocNode,
+  H_cuGraphAddMemFreeNode,
+  H_cuGraphAddNode,
+  H_cuGraphAddNode_v2,
+  H_cuGraphInstantiate,
+  H_cuGraphInstantiate_v2,
+  H_cuGraphInstantiateWithFlags,
+  H_cuGraphInstantiateWithParams,
+  H_cuGraphInstantiateWithParams_ptsz,
+  H_cuGraphExecDestroy,
+  H_cuGraphDestroy,
   H_cuMemGetInfo_v2,
   H_cuDeviceTotalMem_v2,
   H_cuLaunchKernel,
@@ -747,10 +785,11 @@ EXPORT CUresult cuMemCreate(CUmemGenericAllocationHandle* handle,
                  [&] { return f(handle, size, prop, flags); }, no_spill);
 }
 
+static void freed(CUdeviceptr dptr);
+
 EXPORT CUresult cuMemFree_v2(CUdeviceptr dptr) {
   CUresult r = REAL(H_cuMemFree_v2, fn_cuMemFree_v2)(dptr);
-  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING)
-    release(g_ptrs, dptr);
+  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING) freed(dptr);
   return r;
 }
 
@@ -758,8 +797,7 @@ static CUresult free_async(Hook& k, CUdeviceptr dptr, CUstream s) {
   CUresult r = real<fn_cuMemFreeAsync>(k)(dptr, s);
   /* Stream-ordered: the memory returns to the pool in stream order; its
    * charge goes now. */
-  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING)
-    release(g_ptrs, dptr);
+  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING) freed(dptr);
   return r;
 }
 EXPORT CUresult cuMemFreeAsync(CUdeviceptr dptr, CUstream hStream) {
@@ -773,6 +811,377 @@ EXPORT CUresult cuMemRelease(CUmemGenericAllocationHandle handle) {
   CUresult r = REAL(H_cuMemRelease, fn_cuMemRelease)(handle);
   if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING)
     release(g_handles, handle);
+  return r;
+}
+
+/* ---- CUDA arrays ---------------------------------------------------- */
+
+/* Bytes of one channel of an element of `f`.  A format not listed here
+ * (packed, block-compressed and video formats) is charged as the widest
+ * element a CUDA array holds, 16 bytes, so it is never under-charged. */
+static uint64_t format_bytes(CUarray_format f) {
+  switch (f) {
+    case CU_AD_FORMAT_UNSIGNED_INT8:
+    case CU_AD_FORMAT_SIGNED_INT8:
+      return 1;
+    case CU_AD_FORMAT_UNSIGNED_INT16:
+    case CU_AD_FORMAT_SIGNED_INT16:
+    case CU_AD_FORMAT_HALF:
+      return 2;
+    case CU_AD_FORMAT_UNSIGNED_INT32:
+    case CU_AD_FORMAT_SIGNED_INT32:
+    case CU_AD_FORMAT_FLOAT:
+      return 4;
+  }
+  return 16;
+}
+
+/* The reference's compute_array_alloc_bytes (SURVEY §2.9c): width ×
+ * height × depth × channels × format bytes, a 0 extent counting as 1,
+ * summed over `levels` mip levels, each half the last in every extent
+ * but the layers (or cube faces) of a layered array.  Saturates rather
+ * than wraps, so an absurd descriptor is refused. */
+static uint64_t array_bytes(const CUDA_ARRAY3D_DESCRIPTOR& d,
+                            unsigned int levels) {
+  const bool layered = d.Flags & (kArray3DLayered | kArray3DCubemap);
+  uint64_t total = 0;
+  for (unsigned int l = 0; l < std::max(1u, std::min(levels, 64u)); l++) {
+    uint64_t extent[3] = {d.Width >> l, d.Height >> l,
+                          layered ? d.Depth : d.Depth >> l};
+    uint64_t n = format_bytes(d.Format) * std::max(1u, d.NumChannels);
+    for (uint64_t e : extent)
+      if (__builtin_mul_overflow(n, std::max<uint64_t>(e, 1), &n))
+        return UINT64_MAX;
+    if (__builtin_add_overflow(total, n, &total)) return UINT64_MAX;
+  }
+  return total;
+}
+
+template <class Call>
+static CUresult create_array(CUarray* pHandle,
+                             const CUDA_ARRAY3D_DESCRIPTOR& d, Call call) {
+  MEM_PROLOGUE(call());
+  if (pHandle == nullptr) return call();
+  return charged(g_arrays, pHandle, current_dev(), array_bytes(d, 1), call,
+                 no_spill);
+}
+
+EXPORT CUresult cuArrayCreate_v2(CUarray* pHandle,
+                                 const CUDA_ARRAY_DESCRIPTOR* pAllocateArray) {
+  auto* f = REAL(H_cuArrayCreate_v2, fn_cuArrayCreate_v2);
+  auto call = [&] { return f(pHandle, pAllocateArray); };
+  if (pAllocateArray == nullptr) return call();
+  const CUDA_ARRAY_DESCRIPTOR& a = *pAllocateArray;
+  return create_array(pHandle,
+                      {a.Width, a.Height, 0, a.Format, a.NumChannels, 0},
+                      call);
+}
+
+EXPORT CUresult cuArray3DCreate_v2(
+    CUarray* pHandle, const CUDA_ARRAY3D_DESCRIPTOR* pAllocateArray) {
+  auto* f = REAL(H_cuArray3DCreate_v2, fn_cuArray3DCreate_v2);
+  auto call = [&] { return f(pHandle, pAllocateArray); };
+  if (pAllocateArray == nullptr) return call();
+  return create_array(pHandle, *pAllocateArray, call);
+}
+
+EXPORT CUresult cuMipmappedArrayCreate(
+    CUmipmappedArray* pHandle,
+    const CUDA_ARRAY3D_DESCRIPTOR* pMipmappedArrayDesc,
+    unsigned int numMipmapLevels) {
+  auto* f = REAL(H_cuMipmappedArrayCreate, fn_cuMipmappedArrayCreate);
+  auto call = [&] { return f(pHandle, pMipmappedArrayDesc, numMipmapLevels); };
+  MEM_PROLOGUE(call());
+  if (pHandle == nullptr || pMipmappedArrayDesc == nullptr) return call();
+  return charged(g_mipmaps, pHandle, current_dev(),
+                 array_bytes(*pMipmappedArrayDesc, numMipmapLevels), call,
+                 no_spill);
+}
+
+EXPORT CUresult cuArrayDestroy(CUarray hArray) {
+  CUresult r = REAL(H_cuArrayDestroy, fn_cuArrayDestroy)(hArray);
+  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING)
+    release(g_arrays, hArray);
+  return r;
+}
+
+EXPORT CUresult cuMipmappedArrayDestroy(CUmipmappedArray hMipmappedArray) {
+  CUresult r = REAL(H_cuMipmappedArrayDestroy,
+                    fn_cuMipmappedArrayDestroy)(hMipmappedArray);
+  if (r == CUDA_SUCCESS && g_state.load() == STATE_ENFORCING)
+    release(g_mipmaps, hMipmappedArray);
+  return r;
+}
+
+/* ---- graph memory nodes ---------------------------------------------- */
+
+/* A memory node's allocation is made each time an executable graph made
+ * from its graph is launched, and lives until a free node, cuMemFreeAsync
+ * or cuMemFree frees it; destroying the graph or the executable graph
+ * frees nothing.  So the node's bytesize is charged when the node is added
+ * (refused past the cap) and held while its graph or any executable graph
+ * instantiated from it lives.  When the last of them is destroyed the
+ * charge goes, unless an allocation the node made may still be live (a
+ * launch made it, and no free of its address was seen since): then the
+ * charge passes to that address, and the free that ends the allocation
+ * releases it.  The driver refuses to clone a graph with memory nodes or
+ * to nest it as a child graph, so no other graph launches these nodes.
+ * Allocations captured from a stream pass through cuMemAllocAsync and
+ * cuMemFreeAsync at capture, and are charged between those calls. */
+struct MemNode {
+  CUdeviceptr dptr;
+  bool live;  /* an allocation it made may be live now */
+};
+struct GraphMem {
+  std::vector<CUgraphNode> allocs;  /* its memory nodes */
+  std::vector<CUdeviceptr> frees;   /* addresses its free nodes free */
+  int execs = 0;                    /* live executable graphs made from it */
+  bool destroyed = false;
+};
+/* Under g_mem_mu: graphs with memory or free nodes, their memory nodes by
+ * handle and by address, and the executable graphs made from them. */
+static auto* g_graphs = new std::unordered_map<CUgraph, GraphMem>();
+static auto* g_mem_nodes = new std::unordered_map<CUgraphNode, MemNode>();
+static auto* g_node_at = new std::unordered_map<CUdeviceptr, CUgraphNode>();
+static auto* g_execs = new std::unordered_map<CUgraphExec, CUgraph>();
+/* Some memory node was charged: the graph hooks below have work to do. */
+static std::atomic<bool> g_graph_mem{false};
+
+/* Record a node of `graph` that allocates (`alloc`) or frees `dptr`. */
+static void track_node(CUgraph graph, CUgraphNode node, CUdeviceptr dptr,
+                       bool alloc) {
+  std::lock_guard<std::mutex> lk(g_mem_mu);
+  if (alloc) {
+    (*g_graphs)[graph].allocs.push_back(node);
+    (*g_mem_nodes)[node] = MemNode{dptr, false};
+    (*g_node_at)[dptr] = node;
+    g_graph_mem.store(true, std::memory_order_relaxed);
+  } else if (g_node_at->count(dptr)) {
+    (*g_graphs)[graph].frees.push_back(dptr);
+  }
+}
+
+/* An allocation at `dptr` was freed outside any graph. */
+static void freed(CUdeviceptr dptr) {
+  release(g_ptrs, dptr);  /* a pointer's, or a graph allocation's passed on */
+  if (!g_graph_mem.load(std::memory_order_relaxed)) return;
+  std::lock_guard<std::mutex> lk(g_mem_mu);
+  auto n = g_node_at->find(dptr);
+  if (n != g_node_at->end()) (*g_mem_nodes)[n->second].live = false;
+}
+
+/* Under g_mem_mu: once `graph` and every executable graph made from it
+ * are destroyed, drop them; returns the memory nodes whose charges go (the
+ * others' passed to their addresses). */
+static std::vector<CUgraphNode> retire_locked(CUgraph graph) {
+  std::vector<CUgraphNode> gone;
+  auto g = g_graphs->find(graph);
+  if (g == g_graphs->end() || !g->second.destroyed || g->second.execs > 0)
+    return gone;
+  for (CUgraphNode n : g->second.allocs) {
+    auto m = g_mem_nodes->find(n);
+    if (m == g_mem_nodes->end()) continue;
+    g_node_at->erase(m->second.dptr);
+    auto c = g_nodes->find(n);
+    if (m->second.live && c != g_nodes->end()) {
+      (*g_ptrs)[m->second.dptr] = c->second;
+      g_nodes->erase(c);
+    } else {
+      gone.push_back(n);
+    }
+    g_mem_nodes->erase(m);
+  }
+  g_graphs->erase(g);
+  return gone;
+}
+
+template <class Call>
+static CUresult add_alloc_node(CUgraphNode* node, CUgraph graph,
+                               CUDA_MEM_ALLOC_NODE_PARAMS* p, Call call) {
+  MEM_PROLOGUE(call());
+  if (node == nullptr || p == nullptr || p->bytesize == 0) return call();
+  const CUmemLocation& at = p->poolProps.location;
+  int dev = at.type == CU_MEM_LOCATION_TYPE_DEVICE ? region_dev(at.id)
+                                                   : current_dev();
+  CUresult r = charged(g_nodes, node, dev, p->bytesize, call, no_spill);
+  if (r == CUDA_SUCCESS) track_node(graph, *node, p->dptr, true);
+  return r;
+}
+
+EXPORT CUresult cuGraphAddMemAllocNode(CUgraphNode* phGraphNode,
+                                       CUgraph hGraph,
+                                       const CUgraphNode* dependencies,
+                                       size_t numDependencies,
+                                       CUDA_MEM_ALLOC_NODE_PARAMS* nodeParams) {
+  auto* f = REAL(H_cuGraphAddMemAllocNode, fn_cuGraphAddMemAllocNode);
+  return add_alloc_node(phGraphNode, hGraph, nodeParams, [&] {
+    return f(phGraphNode, hGraph, dependencies, numDependencies, nodeParams);
+  });
+}
+
+EXPORT CUresult cuGraphAddMemFreeNode(CUgraphNode* phGraphNode,
+                                      CUgraph hGraph,
+                                      const CUgraphNode* dependencies,
+                                      size_t numDependencies,
+                                      CUdeviceptr dptr) {
+  CUresult r = REAL(H_cuGraphAddMemFreeNode, fn_cuGraphAddMemFreeNode)(
+      phGraphNode, hGraph, dependencies, numDependencies, dptr);
+  if (r == CUDA_SUCCESS && g_graph_mem.load(std::memory_order_relaxed))
+    track_node(hGraph, *phGraphNode, dptr, false);
+  return r;
+}
+
+/* cuGraphAddNode[_v2]: a memory node is charged as above, a free node
+ * recorded. */
+template <class Call>
+static CUresult add_node(CUgraphNode* node, CUgraph graph,
+                         CUgraphNodeParams* p, Call call) {
+  if (p != nullptr && p->type == CU_GRAPH_NODE_TYPE_MEM_ALLOC)
+    return add_alloc_node(node, graph, &p->alloc, call);
+  CUresult r = call();
+  if (r == CUDA_SUCCESS && p != nullptr &&
+      p->type == CU_GRAPH_NODE_TYPE_MEM_FREE &&
+      g_graph_mem.load(std::memory_order_relaxed))
+    track_node(graph, *node, p->free.dptr, false);
+  return r;
+}
+
+EXPORT CUresult cuGraphAddNode(CUgraphNode* phGraphNode, CUgraph hGraph,
+                               const CUgraphNode* dependencies,
+                               size_t numDependencies,
+                               CUgraphNodeParams* nodeParams) {
+  auto* f = REAL(H_cuGraphAddNode, fn_cuGraphAddNode);
+  return add_node(phGraphNode, hGraph, nodeParams, [&] {
+    return f(phGraphNode, hGraph, dependencies, numDependencies, nodeParams);
+  });
+}
+
+EXPORT CUresult cuGraphAddNode_v2(CUgraphNode* phGraphNode, CUgraph hGraph,
+                                  const CUgraphNode* dependencies,
+                                  const CUgraphEdgeData* dependencyData,
+                                  size_t numDependencies,
+                                  CUgraphNodeParams* nodeParams) {
+  auto* f = REAL(H_cuGraphAddNode_v2, fn_cuGraphAddNode_v2);
+  return add_node(phGraphNode, hGraph, nodeParams, [&] {
+    return f(phGraphNode, hGraph, dependencies, dependencyData,
+             numDependencies, nodeParams);
+  });
+}
+
+/* An executable graph was made from `graph`: its memory nodes stay
+ * charged while it lives. */
+static CUresult instantiated(CUresult r, CUgraphExec* exec, CUgraph graph) {
+  if (r != CUDA_SUCCESS || exec == nullptr ||
+      !g_graph_mem.load(std::memory_order_relaxed))
+    return r;
+  std::lock_guard<std::mutex> lk(g_mem_mu);
+  auto g = g_graphs->find(graph);
+  if (g != g_graphs->end()) {
+    g->second.execs++;
+    (*g_execs)[*exec] = graph;
+  }
+  return r;
+}
+
+EXPORT CUresult cuGraphInstantiate(CUgraphExec* phGraphExec, CUgraph hGraph,
+                                   CUgraphNode* phErrorNode, char* logBuffer,
+                                   size_t bufferSize) {
+  return instantiated(REAL(H_cuGraphInstantiate, fn_cuGraphInstantiate_v2)(
+                          phGraphExec, hGraph, phErrorNode, logBuffer,
+                          bufferSize),
+                      phGraphExec, hGraph);
+}
+
+EXPORT CUresult cuGraphInstantiate_v2(CUgraphExec* phGraphExec,
+                                      CUgraph hGraph,
+                                      CUgraphNode* phErrorNode,
+                                      char* logBuffer, size_t bufferSize) {
+  return instantiated(
+      REAL(H_cuGraphInstantiate_v2, fn_cuGraphInstantiate_v2)(
+          phGraphExec, hGraph, phErrorNode, logBuffer, bufferSize),
+      phGraphExec, hGraph);
+}
+
+EXPORT CUresult cuGraphInstantiateWithFlags(CUgraphExec* phGraphExec,
+                                            CUgraph hGraph,
+                                            unsigned long long flags) {
+  return instantiated(
+      REAL(H_cuGraphInstantiateWithFlags, fn_cuGraphInstantiateWithFlags)(
+          phGraphExec, hGraph, flags),
+      phGraphExec, hGraph);
+}
+
+static CUresult instantiate_params(Hook& k, CUgraphExec* exec, CUgraph graph,
+                                   CUDA_GRAPH_INSTANTIATE_PARAMS* params) {
+  return instantiated(
+      real<fn_cuGraphInstantiateWithParams>(k)(exec, graph, params), exec,
+      graph);
+}
+EXPORT CUresult cuGraphInstantiateWithParams(
+    CUgraphExec* phGraphExec, CUgraph hGraph,
+    CUDA_GRAPH_INSTANTIATE_PARAMS* instantiateParams) {
+  return instantiate_params(g_hooks[H_cuGraphInstantiateWithParams],
+                            phGraphExec, hGraph, instantiateParams);
+}
+EXPORT CUresult cuGraphInstantiateWithParams_ptsz(
+    CUgraphExec* phGraphExec, CUgraph hGraph,
+    CUDA_GRAPH_INSTANTIATE_PARAMS* instantiateParams) {
+  return instantiate_params(g_hooks[H_cuGraphInstantiateWithParams_ptsz],
+                            phGraphExec, hGraph, instantiateParams);
+}
+
+/* After a launch of `exec`: its graph's memory nodes have live
+ * allocations, and the addresses its free nodes free have none. */
+static void graph_launched(CUgraphExec exec) {
+  std::vector<CUdeviceptr> passed;
+  {
+    std::lock_guard<std::mutex> lk(g_mem_mu);
+    auto e = g_execs->find(exec);
+    if (e == g_execs->end()) return;
+    const GraphMem& g = (*g_graphs)[e->second];
+    for (CUgraphNode n : g.allocs) (*g_mem_nodes)[n].live = true;
+    for (CUdeviceptr d : g.frees) {
+      auto n = g_node_at->find(d);
+      if (n != g_node_at->end())
+        (*g_mem_nodes)[n->second].live = false;
+      else
+        passed.push_back(d);
+    }
+  }
+  for (CUdeviceptr d : passed) release(g_ptrs, d);
+}
+
+EXPORT CUresult cuGraphExecDestroy(CUgraphExec hGraphExec) {
+  CUresult r = REAL(H_cuGraphExecDestroy, fn_cuGraphExecDestroy)(hGraphExec);
+  if (r != CUDA_SUCCESS || !g_graph_mem.load(std::memory_order_relaxed))
+    return r;
+  std::vector<CUgraphNode> gone;
+  {
+    std::lock_guard<std::mutex> lk(g_mem_mu);
+    auto e = g_execs->find(hGraphExec);
+    if (e == g_execs->end()) return r;
+    CUgraph graph = e->second;
+    g_execs->erase(e);
+    (*g_graphs)[graph].execs--;
+    gone = retire_locked(graph);
+  }
+  for (CUgraphNode n : gone) release(g_nodes, n);
+  return r;
+}
+
+EXPORT CUresult cuGraphDestroy(CUgraph hGraph) {
+  CUresult r = REAL(H_cuGraphDestroy, fn_cuGraphDestroy)(hGraph);
+  if (r != CUDA_SUCCESS || !g_graph_mem.load(std::memory_order_relaxed))
+    return r;
+  std::vector<CUgraphNode> gone;
+  {
+    std::lock_guard<std::mutex> lk(g_mem_mu);
+    auto g = g_graphs->find(hGraph);
+    if (g == g_graphs->end()) return r;
+    g->second.destroyed = true;
+    gone = retire_locked(hGraph);
+  }
+  for (CUgraphNode n : gone) release(g_nodes, n);
   return r;
 }
 
@@ -879,6 +1288,52 @@ static Stream g_streams[kMaxStreams];
 static std::atomic<int> g_nstreams{0};
 static std::mutex g_streams_mu;
 
+/* A per-thread default stream (CU_STREAM_PER_THREAD, or stream 0 through
+ * a _ptsz entry point) is a different stream in every thread, and the
+ * watcher's own thread cannot query the launching thread's.  Each
+ * (thread, context) that launches on one takes a slot here with an event,
+ * recorded on its stream after every launch while the meter can run; the
+ * watcher queries the event, which any thread may.  A thread gives its
+ * slots back, and their events are destroyed, when it exits.  Under
+ * g_streams_mu, the watcher included; a slot's owner reads its own slot
+ * without it. */
+struct PerThread {
+  bool used;
+  CUcontext ctx;
+  int dev;
+  CUevent event;  /* null while its owner creates it */
+};
+static const int kMaxPerThread = 64;
+static PerThread g_pt[kMaxPerThread];
+
+/* This thread's slots, one per context it launched in on its per-thread
+ * default stream (-1: that stream is gated but not metered). */
+struct ThreadSlots {
+  static const int kMax = 8;
+  CUcontext ctx[kMax];
+  int slot[kMax];
+  int n = 0;
+  ~ThreadSlots();
+};
+static thread_local ThreadSlots t_slots;
+
+ThreadSlots::~ThreadSlots() {
+  CUevent events[kMax];
+  int k = 0;
+  {
+    std::lock_guard<std::mutex> lk(g_streams_mu);
+    for (int i = 0; i < n; i++) {
+      if (slot[i] < 0) continue;
+      events[k++] = g_pt[slot[i]].event;
+      g_pt[slot[i]] = PerThread{};
+    }
+  }
+  n = 0;
+  fn_cuEventDestroy_v2* destroy = R.cuEventDestroy.load();
+  for (int i = 0; i < k; i++)
+    if (destroy && events[i]) destroy(events[i]);
+}
+
 /* Per device: the bucket was in debt at the watcher's last booking
  * (launches wait it out), and the floor charged since that booking. */
 static std::atomic<bool> g_debt[VTPU_MAX_DEVICES];
@@ -886,13 +1341,82 @@ static std::atomic<uint64_t> g_floor_us[VTPU_MAX_DEVICES];
 
 static void start_watcher();
 
-/* The region device of a launch on `stream`; a stream seen for the first
- * time is registered for the watcher. */
-static int launch_dev(CUstream stream) {
+static bool per_thread_stream(CUstream s, bool ptsz) {
+  return (uintptr_t)s == kStreamPerThread || (ptsz && s == nullptr);
+}
+
+/* Take a slot for this thread's per-thread default stream in `ctx`, then
+ * make its event.  Returns the slot, or -1 when none is free or no event
+ * can be made. */
+static int take_slot(CUcontext ctx) {
+  fn_cuEventCreate* create = R.cuEventCreate.load(std::memory_order_acquire);
+  if (create == nullptr || R.cuEventRecord.load() == nullptr ||
+      R.cuEventQuery.load() == nullptr) {
+    LOG(1, "no events: per-thread default streams are gated but not "
+        "metered");
+    return -1;
+  }
+  int slot = -1;
+  int dev = current_dev();
+  {
+    std::lock_guard<std::mutex> lk(g_streams_mu);
+    for (int i = 0; i < kMaxPerThread && slot < 0; i++)
+      if (!g_pt[i].used) {
+        g_pt[i] = PerThread{true, ctx, dev, nullptr};
+        slot = i;
+      }
+  }
+  if (slot < 0) {
+    LOG(1, "more than %d per-thread default streams: later ones are gated "
+        "but not metered", kMaxPerThread);
+    return -1;
+  }
+  CUevent ev = nullptr;
+  bool made = create(&ev, CU_EVENT_DISABLE_TIMING) == CUDA_SUCCESS;
+  std::lock_guard<std::mutex> lk(g_streams_mu);
+  if (!made) {
+    g_pt[slot] = PerThread{};
+    LOG(1, "no event for a per-thread default stream: its launches are "
+        "gated but not metered");
+    return -1;
+  }
+  g_pt[slot].event = ev;
+  return slot;
+}
+
+/* This thread's slot for its per-thread default stream in `ctx`, taken at
+ * its first launch there; -1 when that stream is not metered. */
+static int per_thread_slot(CUcontext ctx) {
+  ThreadSlots& t = t_slots;
+  for (int i = 0; i < t.n; i++)
+    if (t.ctx[i] == ctx) return t.slot[i];
+  if (t.n == ThreadSlots::kMax) {
+    static std::atomic<bool> said{false};
+    if (!said.exchange(true))
+      LOG(1, "a thread in more than %d contexts: its per-thread default "
+          "streams in the others are gated but not metered", t.n);
+    return -1;
+  }
+  t.ctx[t.n] = ctx;
+  t.slot[t.n] = take_slot(ctx);
+  return t.slot[t.n++];
+}
+
+/* The region device of a launch on `stream` (`ptsz`: through a _ptsz
+ * entry point); a stream seen for the first time is registered for the
+ * watcher.  `*ev` is the event to record after the launch, or null. */
+static int launch_dev(CUstream stream, bool ptsz, CUevent* ev) {
   resolve_reals(LIB_CUDA);
   CUcontext ctx = nullptr;
   fn_cuCtxGetCurrent* cur = R.cuCtxGetCurrent.load(std::memory_order_acquire);
   if (cur == nullptr || cur(&ctx) != CUDA_SUCCESS) ctx = nullptr;
+  if (per_thread_stream(stream, ptsz)) {
+    int i = per_thread_slot(ctx);
+    start_watcher();
+    if (i < 0) return current_dev();
+    *ev = g_pt[i].event;
+    return g_pt[i].dev;
+  }
   int n = g_nstreams.load(std::memory_order_acquire);
   for (int i = 0; i < n; i++)
     if (g_streams[i].ctx == ctx && g_streams[i].stream == stream)
@@ -915,7 +1439,9 @@ static int launch_dev(CUstream stream) {
   return dev;
 }
 
-static CUresult gate(CUstream stream, bool graph) {
+/* Pass the gate before a launch on `stream`.  `*ev` is set to the event to
+ * record after the launch (a per-thread default stream's), or left null. */
+static CUresult gate(CUstream stream, bool graph, bool ptsz, CUevent* ev) {
   C.launches++;
   if (graph) C.graph_launches++;
   int st = state();
@@ -923,7 +1449,7 @@ static CUresult gate(CUstream stream, bool graph) {
   if (st == STATE_FAILCLOSED) return CUDA_ERROR_NOT_PERMITTED;
   uint64_t t0 = mono_ns();
   enroll();
-  int dev = launch_dev(stream);
+  int dev = launch_dev(stream, ptsz, ev);
   /* With a floor each launch is charged it up front, as vtpu charges each
    * execute; otherwise a launch only waits while the watcher last saw the
    * bucket in debt, and costs no region call. */
@@ -993,15 +1519,15 @@ static void book(int dev, uint64_t us, uint64_t floor_us) {
  * each process's device time directly, but the card's driver may not
  * offer it, and NVML names processes by their host pid, which a
  * container does not see (both so where this was measured, PERF.md).
- * Launches on a thread's per-thread default stream cannot be queried
- * from the watcher's thread: they are gated, but not metered. */
+ * A per-thread default stream is queried through its event (Stream). */
 static const uint64_t kTickNs = 2000000ull;
 static const uint64_t kIdleTickNs = 50000000ull;
 static const uint64_t kSlotLeaseNs = 4 * kIdleTickNs;
 static const int kTicksPerBooking = 5;
 static const int kBusySlots = VTPU_MAX_PROCS;
 
-/* Mirrored by native/interposer_test.cc. */
+/* Mirrored by native/interposer_test.cc; a busy file is kBusySlots of
+ * them (vtpu_cuda_busy_file_bytes). */
 struct BusySlot {
   uint64_t owner;   /* the holder's token; 0 while free or being claimed */
   uint64_t beat_ns; /* the holder's last heartbeat; 0 once released */
@@ -1173,6 +1699,7 @@ static int busy_share(int dev, uint64_t now, uint64_t tick) {
 static void* watch_main(void*) {
   resolve_reals(LIB_CUDA);
   fn_cuStreamQuery* query = R.cuStreamQuery.load();
+  fn_cuEventQuery* query_event = R.cuEventQuery.load();
   fn_cuCtxSetCurrent* set_ctx = R.cuCtxSetCurrent.load();
   if (!query || !set_ctx) {
     g_meter.store(-1);
@@ -1193,13 +1720,20 @@ static void* watch_main(void*) {
     uint64_t now = mono_ns(), dt = now - last;
     last = now;
     bool busy[VTPU_MAX_DEVICES] = {}, seen[VTPU_MAX_DEVICES] = {};
+    auto poll = [&](CUcontext ctx, int dev, CUstream stream, CUevent ev) {
+      seen[dev] = true;
+      if (busy[dev]) return;
+      if (ctx != current && set_ctx(ctx) == CUDA_SUCCESS) current = ctx;
+      busy[dev] = (ev ? query_event(ev) : query(stream)) ==
+                  CUDA_ERROR_NOT_READY;
+    };
     int n = std::min(g_nstreams.load(std::memory_order_acquire), kMaxStreams);
-    for (int i = 0; i < n; i++) {
-      const Stream& s = g_streams[i];
-      seen[s.dev] = true;
-      if (busy[s.dev]) continue;
-      if (s.ctx != current && set_ctx(s.ctx) == CUDA_SUCCESS) current = s.ctx;
-      busy[s.dev] = query(s.stream) == CUDA_ERROR_NOT_READY;
+    for (int i = 0; i < n; i++)
+      poll(g_streams[i].ctx, g_streams[i].dev, g_streams[i].stream, nullptr);
+    {
+      std::lock_guard<std::mutex> slk(g_streams_mu);
+      for (const PerThread& p : g_pt)
+        if (p.used && p.event) poll(p.ctx, p.dev, nullptr, p.event);
     }
     for (int d = 0; d < VTPU_MAX_DEVICES; d++) {
       if (!seen[d]) continue;
@@ -1269,8 +1803,18 @@ static void after_fork_child() {
   g_watch_started.store(false);
   g_watch_stop = false;
   g_nstreams.store(0);
+  for (PerThread& p : g_pt) p = PerThread{};
+  t_slots.n = 0;
   g_ptrs = new std::unordered_map<CUdeviceptr, Charge>();
   g_handles = new std::unordered_map<CUmemGenericAllocationHandle, Charge>();
+  g_arrays = new std::unordered_map<CUarray, Charge>();
+  g_mipmaps = new std::unordered_map<CUmipmappedArray, Charge>();
+  g_nodes = new std::unordered_map<CUgraphNode, Charge>();
+  g_graphs = new std::unordered_map<CUgraph, GraphMem>();
+  g_mem_nodes = new std::unordered_map<CUgraphNode, MemNode>();
+  g_node_at = new std::unordered_map<CUdeviceptr, CUgraphNode>();
+  g_execs = new std::unordered_map<CUgraphExec, CUgraph>();
+  g_graph_mem.store(false);
   C.charged_bytes = 0;
   C.spilled_bytes = 0;
 }
@@ -1287,61 +1831,84 @@ __attribute__((constructor)) static void install_fork_handler() {
       CUstream s
 #define LAUNCH_ARGS f, gx, gy, gz, bx, by, bz, shm, s
 
-static CUresult launch(Hook& k, LAUNCH_PARAMS, void** params, void** extra) {
-  CUresult g = gate(s, false);
+/* After a launch on a per-thread default stream: mark its end with the
+ * thread's event, for the watcher to query (unless metering cannot run). */
+static CUresult launched(CUresult r, CUevent ev) {
+  if (r == CUDA_SUCCESS && ev != nullptr &&
+      g_meter.load(std::memory_order_relaxed) >= 0)
+    R.cuEventRecord.load(std::memory_order_relaxed)(
+        ev, (CUstream)kStreamPerThread);
+  return r;
+}
+
+static CUresult launch(Hook& k, bool ptsz, LAUNCH_PARAMS, void** params,
+                       void** extra) {
+  CUevent ev = nullptr;
+  CUresult g = gate(s, false, ptsz, &ev);
   if (g != CUDA_SUCCESS) return g;
-  return real<fn_cuLaunchKernel>(k)(LAUNCH_ARGS, params, extra);
+  return launched(real<fn_cuLaunchKernel>(k)(LAUNCH_ARGS, params, extra), ev);
 }
 EXPORT CUresult cuLaunchKernel(LAUNCH_PARAMS, void** params, void** extra) {
-  return launch(g_hooks[H_cuLaunchKernel], LAUNCH_ARGS, params, extra);
+  return launch(g_hooks[H_cuLaunchKernel], false, LAUNCH_ARGS, params, extra);
 }
 EXPORT CUresult cuLaunchKernel_ptsz(LAUNCH_PARAMS, void** params,
                                     void** extra) {
-  return launch(g_hooks[H_cuLaunchKernel_ptsz], LAUNCH_ARGS, params, extra);
+  return launch(g_hooks[H_cuLaunchKernel_ptsz], true, LAUNCH_ARGS, params,
+                extra);
 }
 
-static CUresult launch_coop(Hook& k, LAUNCH_PARAMS, void** params) {
-  CUresult g = gate(s, false);
+static CUresult launch_coop(Hook& k, bool ptsz, LAUNCH_PARAMS,
+                            void** params) {
+  CUevent ev = nullptr;
+  CUresult g = gate(s, false, ptsz, &ev);
   if (g != CUDA_SUCCESS) return g;
-  return real<fn_cuLaunchCooperativeKernel>(k)(LAUNCH_ARGS, params);
+  return launched(real<fn_cuLaunchCooperativeKernel>(k)(LAUNCH_ARGS, params),
+                  ev);
 }
 EXPORT CUresult cuLaunchCooperativeKernel(LAUNCH_PARAMS, void** params) {
-  return launch_coop(g_hooks[H_cuLaunchCooperativeKernel], LAUNCH_ARGS,
-                     params);
+  return launch_coop(g_hooks[H_cuLaunchCooperativeKernel], false,
+                     LAUNCH_ARGS, params);
 }
 EXPORT CUresult cuLaunchCooperativeKernel_ptsz(LAUNCH_PARAMS,
                                                void** params) {
-  return launch_coop(g_hooks[H_cuLaunchCooperativeKernel_ptsz], LAUNCH_ARGS,
-                     params);
+  return launch_coop(g_hooks[H_cuLaunchCooperativeKernel_ptsz], true,
+                     LAUNCH_ARGS, params);
 }
 
-static CUresult launch_ex(Hook& k, const CUlaunchConfig* config,
+static CUresult launch_ex(Hook& k, bool ptsz, const CUlaunchConfig* config,
                           CUfunction f, void** params, void** extra) {
-  CUresult g = gate(config ? config->hStream : nullptr, false);
+  CUevent ev = nullptr;
+  CUresult g = gate(config ? config->hStream : nullptr, false, ptsz, &ev);
   if (g != CUDA_SUCCESS) return g;
-  return real<fn_cuLaunchKernelEx>(k)(config, f, params, extra);
+  return launched(real<fn_cuLaunchKernelEx>(k)(config, f, params, extra), ev);
 }
 EXPORT CUresult cuLaunchKernelEx(const CUlaunchConfig* config, CUfunction f,
                                  void** params, void** extra) {
-  return launch_ex(g_hooks[H_cuLaunchKernelEx], config, f, params, extra);
+  return launch_ex(g_hooks[H_cuLaunchKernelEx], false, config, f, params,
+                   extra);
 }
 EXPORT CUresult cuLaunchKernelEx_ptsz(const CUlaunchConfig* config,
                                       CUfunction f, void** params,
                                       void** extra) {
-  return launch_ex(g_hooks[H_cuLaunchKernelEx_ptsz], config, f, params,
+  return launch_ex(g_hooks[H_cuLaunchKernelEx_ptsz], true, config, f, params,
                    extra);
 }
 
-static CUresult graph_launch(Hook& k, CUgraphExec g, CUstream s) {
-  CUresult r = gate(s, true);
+static CUresult graph_launch(Hook& k, bool ptsz, CUgraphExec g, CUstream s) {
+  CUevent ev = nullptr;
+  CUresult r = gate(s, true, ptsz, &ev);
   if (r != CUDA_SUCCESS) return r;
-  return real<fn_cuGraphLaunch>(k)(g, s);
+  r = launched(real<fn_cuGraphLaunch>(k)(g, s), ev);
+  if (r == CUDA_SUCCESS && g_graph_mem.load(std::memory_order_relaxed))
+    graph_launched(g);
+  return r;
 }
 EXPORT CUresult cuGraphLaunch(CUgraphExec hGraphExec, CUstream hStream) {
-  return graph_launch(g_hooks[H_cuGraphLaunch], hGraphExec, hStream);
+  return graph_launch(g_hooks[H_cuGraphLaunch], false, hGraphExec, hStream);
 }
 EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec hGraphExec, CUstream hStream) {
-  return graph_launch(g_hooks[H_cuGraphLaunch_ptsz], hGraphExec, hStream);
+  return graph_launch(g_hooks[H_cuGraphLaunch_ptsz], true, hGraphExec,
+                      hStream);
 }
 
 /* ------------------------------------------------------------------ */
@@ -1442,6 +2009,22 @@ Hook g_hooks[H_COUNT] = {
     HOOK(LIB_CUDA, cuMemFreeAsync),
     HOOK(LIB_CUDA, cuMemFreeAsync_ptsz),
     HOOK(LIB_CUDA, cuMemRelease),
+    HOOK(LIB_CUDA, cuArrayCreate_v2),
+    HOOK(LIB_CUDA, cuArray3DCreate_v2),
+    HOOK(LIB_CUDA, cuMipmappedArrayCreate),
+    HOOK(LIB_CUDA, cuArrayDestroy),
+    HOOK(LIB_CUDA, cuMipmappedArrayDestroy),
+    HOOK(LIB_CUDA, cuGraphAddMemAllocNode),
+    HOOK(LIB_CUDA, cuGraphAddMemFreeNode),
+    HOOK(LIB_CUDA, cuGraphAddNode),
+    HOOK(LIB_CUDA, cuGraphAddNode_v2),
+    HOOK(LIB_CUDA, cuGraphInstantiate),
+    HOOK(LIB_CUDA, cuGraphInstantiate_v2),
+    HOOK(LIB_CUDA, cuGraphInstantiateWithFlags),
+    HOOK(LIB_CUDA, cuGraphInstantiateWithParams),
+    HOOK(LIB_CUDA, cuGraphInstantiateWithParams_ptsz),
+    HOOK(LIB_CUDA, cuGraphExecDestroy),
+    HOOK(LIB_CUDA, cuGraphDestroy),
     HOOK(LIB_CUDA, cuMemGetInfo_v2),
     HOOK(LIB_CUDA, cuDeviceTotalMem_v2),
     HOOK(LIB_CUDA, cuLaunchKernel),
@@ -1463,6 +2046,13 @@ const size_t g_nhooks = H_COUNT;
 
 EXPORT const char* vtpu_cuda_interposer_ident(void) {
   return "vtpu_cuda interposer 1";
+}
+
+/* The size of a card's busy file: the daemon stages each at this size
+ * (plugin/grant.py BUSY_FILE_BYTES, held to it by a test), and the
+ * watcher refuses a shorter one. */
+EXPORT size_t vtpu_cuda_busy_file_bytes(void) {
+  return sizeof(BusySlot) * kBusySlots;
 }
 
 EXPORT int vtpu_cuda_interposer_stats(vtpu_cuda_stats* out, size_t size) {

@@ -118,8 +118,14 @@ static void mem_info(size_t* freeb, size_t* total) {
         CUDA_SUCCESS);
 }
 
-static CUresult launch() {
-  auto* f = (fn_cuLaunchKernel*)proc("cuLaunchKernel");
+/* A launch on stream 0: the legacy default stream, or with `per_thread`
+ * through cuLaunchKernel_ptsz, the calling thread's per-thread default
+ * stream (as a program built with --default-stream per-thread does). */
+static CUresult launch(bool per_thread = false) {
+  auto* f = (fn_cuLaunchKernel*)proc(
+      "cuLaunchKernel", 12080,
+      per_thread ? CU_GET_PROC_ADDRESS_PER_THREAD_DEFAULT_STREAM
+                 : CU_GET_PROC_ADDRESS_DEFAULT);
   return f(nullptr, 1, 1, 1, 32, 1, 1, 0, nullptr, nullptr, nullptr);
 }
 
@@ -194,39 +200,112 @@ static int sc_mem() {
 }
 
 /* Launch-and-synchronise loop for `seconds`; returns the launches made. */
-static int busy_loop(double seconds, bool synchronise = true) {
+static int busy_loop(double seconds, bool synchronise = true,
+                     bool per_thread = false) {
   int n = 0;
   double t0 = mono_s();
   while (mono_s() - t0 < seconds) {
-    CHECK(launch() == CUDA_SUCCESS);
+    CHECK(launch(per_thread) == CUDA_SUCCESS);
     if (synchronise) synchronize();
     n++;
   }
   return n;
 }
 
-static int sc_throttle() {
-  /* Each kernel keeps the mock device busy 10 ms; the watcher sees the
-   * stream busy and books it.  At 50% FORCE the loop converges to half
-   * the card once the 400 ms burst is spent. */
+/* Each kernel keeps the mock device busy 10 ms; the watcher sees the
+ * stream busy and books it.  At 50% FORCE the loop converges to half the
+ * card once the 400 ms burst is spent.  `per_thread`: every launch goes
+ * to this thread's per-thread default stream, which the watcher's thread
+ * cannot query. */
+static int throttled(const char* name, bool per_thread) {
   setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
   setenv("VTPU_DEVICE_CORE_LIMIT", "50", 1);
   setenv("VTPU_CORE_UTILIZATION_POLICY", "FORCE", 1);
   setenv("MOCK_KERNEL_US", "10000", 1);
   open_driver();
-  busy_loop(1.2);
+  busy_loop(1.2, true, per_thread);
   double t0 = mono_s();
-  int n = busy_loop(1.5);
+  int n = busy_loop(1.5, true, per_thread);
   double duty = n * 0.010 / (mono_s() - t0);
   Stats s = stats();
-  printf("throttle: duty %.3f at a 50%% share (%d launches x 10 ms), "
-         "%llu waits, %llu us booked, meter %d\n", duty, n,
+  printf("%s: duty %.3f at a 50%% share (%d launches x 10 ms), %llu waits, "
+         "%llu us booked, meter %d\n", name, duty, n,
          (unsigned long long)s.gate_waits, (unsigned long long)s.booked_us,
          s.meter);
   CHECK(s.meter == 1 && s.busy_ticks > 0 && s.debited_us > 0);
   CHECK(s.shared_ticks == 0);
   CHECK(s.gate_waits > 0);
   CHECK(duty > 0.30 && duty < 0.70);
+  return 0;
+}
+
+static int sc_throttle() { return throttled("throttle", false); }
+
+static int sc_ptsz_meter() {
+  int rc = throttled("ptsz_meter", true);
+  CHECK(mock<uint64_t(const char*)>("mockCalls")("cuLaunchKernel_ptsz") > 0);
+  return rc;
+}
+
+/* One launch on this thread's per-thread default stream; with a barrier,
+ * meet the others after it and again before exiting. */
+static void* ptsz_launch(void* barrier) {
+  CHECK(launch(true) == CUDA_SUCCESS);
+  if (barrier) {
+    pthread_barrier_wait((pthread_barrier_t*)barrier);
+    pthread_barrier_wait((pthread_barrier_t*)barrier);
+  }
+  return nullptr;
+}
+
+/* Per-thread default streams take one event per (thread, context), reused
+ * across context switches, and give it back when their thread exits; past
+ * the slots, a launch is gated but makes no event. */
+static int sc_ptsz_threads() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "4Mi", 1);
+  setenv("MOCK_CUDA_DEVICES", "2", 1);
+  open_driver();
+  auto* calls = mock<uint64_t(const char*)>("mockCalls");
+  auto live = [&] {
+    return calls("cuEventCreate") - calls("cuEventDestroy_v2");
+  };
+  /* One thread alternating between two contexts. */
+  for (int i = 0; i < 200; i++) {
+    set_device(i % 2);
+    CHECK(launch(true) == CUDA_SUCCESS);
+  }
+  CHECK(calls("cuEventCreate") == 2 && calls("cuEventRecord") == 200);
+  set_device(0);
+  /* 100 threads one after another: each gives its slot back. */
+  for (int i = 0; i < 100; i++) {
+    pthread_t t;
+    CHECK(pthread_create(&t, nullptr, ptsz_launch, nullptr) == 0);
+    CHECK(pthread_join(t, nullptr) == 0);
+  }
+  CHECK(calls("cuEventCreate") == 102 && live() == 2);
+  /* 80 threads at once: the 62 slots left are taken, the other 18 threads
+   * make no event. */
+  const int k = 80;
+  pthread_barrier_t barrier;
+  pthread_barrier_init(&barrier, nullptr, k + 1);
+  pthread_t ts[k];
+  for (int i = 0; i < k; i++)
+    CHECK(pthread_create(&ts[i], nullptr, ptsz_launch, &barrier) == 0);
+  pthread_barrier_wait(&barrier);
+  uint64_t during = live();
+  pthread_barrier_wait(&barrier);
+  for (int i = 0; i < k; i++) CHECK(pthread_join(ts[i], nullptr) == 0);
+  pthread_barrier_destroy(&barrier);
+  CHECK(during == 64 && live() == 2);
+  /* The slots came back: a new thread's launches are metered again. */
+  uint64_t records = calls("cuEventRecord");
+  ptsz_launch(nullptr);  /* this thread: its slot in context 1 exists */
+  pthread_t t;
+  CHECK(pthread_create(&t, nullptr, ptsz_launch, nullptr) == 0);
+  CHECK(pthread_join(t, nullptr) == 0);
+  CHECK(calls("cuEventRecord") == records + 2 && live() == 2);
+  printf("ptsz_threads: %llu events made, at most 64 live, 2 left\n",
+         (unsigned long long)calls("cuEventCreate"));
   return 0;
 }
 
@@ -407,6 +486,180 @@ static int sc_meminfo_nvml() {
   release(p);
   CHECK(info(dev, &m) == NVML_SUCCESS && m.used == 0 && m.free == 1 * Mi);
   printf("meminfo_nvml: NVML reports the 1 MiB cap and the region's use\n");
+  return 0;
+}
+
+static int sc_array() {
+  /* CUDA arrays are charged from their descriptors before the driver
+   * allocates them, and released by their destroys; so are graph memory
+   * nodes of a graph never instantiated, until the graph is destroyed. */
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  open_driver();
+  auto* calls = mock<uint64_t(const char*)>("mockCalls");
+  auto* create = (fn_cuArrayCreate_v2*)proc("cuArrayCreate", 3020);
+  auto* create3d = (fn_cuArray3DCreate_v2*)proc("cuArray3DCreate", 3020);
+  auto* mipmapped =
+      (fn_cuMipmappedArrayCreate*)proc("cuMipmappedArrayCreate", 5000);
+  auto* destroy = (fn_cuArrayDestroy*)proc("cuArrayDestroy");
+  auto* destroy_mipmapped =
+      (fn_cuMipmappedArrayDestroy*)proc("cuMipmappedArrayDestroy", 5000);
+  /* 256 x 128 float4: 512 KiB. */
+  CUDA_ARRAY_DESCRIPTOR d2 = {256, 128, CU_AD_FORMAT_FLOAT, 4};
+  CUarray a = nullptr, b = nullptr, c = nullptr;
+  CHECK(create(&a, &d2) == CUDA_SUCCESS && a != nullptr);
+  CHECK(stats().charged_bytes == 512 * Ki);
+  /* 64 x 64 x 80 half: 640 KiB, past the cap with the first. */
+  CUDA_ARRAY3D_DESCRIPTOR big = {64, 64, 80, CU_AD_FORMAT_HALF, 1, 0};
+  uint64_t before = calls("cuArray3DCreate_v2");
+  CHECK(create3d(&b, &big) == CUDA_ERROR_OUT_OF_MEMORY);
+  CHECK(calls("cuArray3DCreate_v2") == before && stats().refused == 1);
+  /* 1-D uchar2, 1000 wide, 16 layers: 32000 bytes. */
+  CUDA_ARRAY3D_DESCRIPTOR layered = {1000, 0, 16, CU_AD_FORMAT_UNSIGNED_INT8,
+                                     2, kArray3DLayered};
+  CHECK(create3d(&b, &layered) == CUDA_SUCCESS);
+  /* A 32 x 32 x 32 uint16 3-D array: 64 KiB. */
+  CUDA_ARRAY3D_DESCRIPTOR cube = {32, 32, 32, CU_AD_FORMAT_UNSIGNED_INT16, 1,
+                                  0};
+  CHECK(create3d(&c, &cube) == CUDA_SUCCESS);
+  /* 64 x 64 float, 4 mip levels: 4 x (4096 + 1024 + 256 + 64) bytes. */
+  CUDA_ARRAY3D_DESCRIPTOR mip = {64, 64, 0, CU_AD_FORMAT_FLOAT, 1, 0};
+  CUmipmappedArray m = nullptr;
+  CHECK(mipmapped(&m, &mip, 4) == CUDA_SUCCESS);
+  uint64_t want = 512 * Ki + 32000 + 64 * Ki + 4 * 5440;
+  CHECK(stats().charged_bytes == want);
+  size_t freeb = 0, total = 0;
+  mem_info(&freeb, &total);
+  CHECK(total == 1 * Mi && freeb == 1 * Mi - want);
+  CHECK(destroy(a) == CUDA_SUCCESS && destroy(b) == CUDA_SUCCESS &&
+        destroy(c) == CUDA_SUCCESS && destroy_mipmapped(m) == CUDA_SUCCESS);
+  CHECK(stats().charged_bytes == 0);
+
+  auto* add = (fn_cuGraphAddMemAllocNode*)proc("cuGraphAddMemAllocNode",
+                                               11040);
+  auto* destroy_graph = (fn_cuGraphDestroy*)proc("cuGraphDestroy", 10000);
+  CUDA_MEM_ALLOC_NODE_PARAMS np;
+  memset(&np, 0, sizeof(np));
+  np.poolProps.allocType = CU_MEM_ALLOCATION_TYPE_PINNED;
+  np.poolProps.location.type = CU_MEM_LOCATION_TYPE_DEVICE;
+  np.poolProps.location.id = 0;
+  np.bytesize = 768 * Ki;
+  CUgraph graph = (CUgraph)(uintptr_t)0x6000;
+  CUgraphNode n1 = nullptr, n2 = nullptr;
+  CHECK(add(&n1, graph, nullptr, 0, &np) == CUDA_SUCCESS && n1 != nullptr);
+  CHECK(stats().charged_bytes == 768 * Ki);
+  np.bytesize = 512 * Ki;
+  before = calls("cuGraphAddMemAllocNode");
+  CHECK(add(&n2, graph, &n1, 1, &np) == CUDA_ERROR_OUT_OF_MEMORY);
+  CHECK(calls("cuGraphAddMemAllocNode") == before);
+  CHECK(destroy_graph(graph) == CUDA_SUCCESS);
+  CHECK(stats().charged_bytes == 0);
+  mem_info(&freeb, &total);
+  CHECK(freeb == 1 * Mi);
+  printf("array: arrays, layered and mipmapped arrays and graph memory "
+         "nodes charged from their descriptors, refused past the cap, "
+         "released to 0\n");
+  return 0;
+}
+
+/* A memory node's charge outlives its graph while an executable graph
+ * made from it lives, and passes to its address while an allocation a
+ * launch made is live: add, instantiate, destroy the graph and launch
+ * cannot allocate past the cap. */
+static int sc_graph_node() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Mi", 1);
+  open_driver();
+  auto* add = (fn_cuGraphAddMemAllocNode*)proc("cuGraphAddMemAllocNode",
+                                               11040);
+  auto* add_free = (fn_cuGraphAddMemFreeNode*)proc("cuGraphAddMemFreeNode",
+                                                   11040);
+  auto* add_node = (fn_cuGraphAddNode*)proc("cuGraphAddNode", 12020);
+  auto* add_node_v2 = (fn_cuGraphAddNode_v2*)proc("cuGraphAddNode", 12030);
+  auto* instantiate =
+      (fn_cuGraphInstantiateWithFlags*)proc("cuGraphInstantiate", 12000);
+  auto* instantiate_v2 =
+      (fn_cuGraphInstantiate_v2*)proc("cuGraphInstantiate", 11000);
+  auto* destroy_exec = (fn_cuGraphExecDestroy*)proc("cuGraphExecDestroy");
+  auto* destroy = (fn_cuGraphDestroy*)proc("cuGraphDestroy");
+  auto* run = (fn_cuGraphLaunch*)proc("cuGraphLaunch");
+  auto charged = [] { return stats().charged_bytes; };
+  CUDA_MEM_ALLOC_NODE_PARAMS np;
+  memset(&np, 0, sizeof(np));
+  np.poolProps.allocType = CU_MEM_ALLOCATION_TYPE_PINNED;
+  np.poolProps.location.type = CU_MEM_LOCATION_TYPE_DEVICE;
+  np.bytesize = 768 * Ki;
+  CUDA_MEM_ALLOC_NODE_PARAMS other = np;
+  auto graph = [](uintptr_t id) { return (CUgraph)(0x60000 + id); };
+  CUgraphNode n = nullptr, m = nullptr;
+  CUgraphExec e = nullptr;
+
+  /* Add, instantiate, destroy the graph: the executable graph holds the
+   * charge, and a second node past the cap is refused. */
+  CHECK(add(&n, graph(1), nullptr, 0, &np) == CUDA_SUCCESS);
+  CHECK(instantiate(&e, graph(1), 0) == CUDA_SUCCESS);
+  CHECK(destroy(graph(1)) == CUDA_SUCCESS);
+  CHECK(charged() == 768 * Ki);
+  CHECK(add(&m, graph(2), nullptr, 0, &other) == CUDA_ERROR_OUT_OF_MEMORY);
+  /* Its launch leaves the allocation live: destroying the executable graph
+   * passes the charge to the address, and the address's free releases it. */
+  CHECK(run(e, nullptr) == CUDA_SUCCESS);
+  CHECK(destroy_exec(e) == CUDA_SUCCESS);
+  CHECK(charged() == 768 * Ki);
+  CHECK(add(&m, graph(2), nullptr, 0, &other) == CUDA_ERROR_OUT_OF_MEMORY);
+  release(np.dptr);
+  CHECK(charged() == 0);
+
+  /* Through cuGraphAddNode: a graph that frees its own allocation leaves
+   * nothing live once it and its executable graph are gone. */
+  CUgraphNodeParams gp;
+  memset(&gp, 0, sizeof(gp));
+  gp.type = CU_GRAPH_NODE_TYPE_MEM_ALLOC;
+  gp.alloc = np;
+  gp.alloc.bytesize = 512 * Ki;
+  CHECK(add_node(&n, graph(3), nullptr, 0, &gp) == CUDA_SUCCESS);
+  CHECK(charged() == 512 * Ki);
+  CUgraphNodeParams fp;
+  memset(&fp, 0, sizeof(fp));
+  fp.type = CU_GRAPH_NODE_TYPE_MEM_FREE;
+  fp.free.dptr = gp.alloc.dptr;
+  CHECK(add_node_v2(&m, graph(3), &n, nullptr, 1, &fp) == CUDA_SUCCESS);
+  CHECK(instantiate_v2(&e, graph(3), nullptr, nullptr, 0) == CUDA_SUCCESS);
+  CHECK(run(e, nullptr) == CUDA_SUCCESS);
+  CHECK(destroy_exec(e) == CUDA_SUCCESS);
+  CHECK(charged() == 512 * Ki);
+  CUgraphNodeParams big = gp;
+  big.alloc.bytesize = 768 * Ki;
+  CHECK(add_node_v2(&m, graph(4), nullptr, nullptr, 0, &big) ==
+        CUDA_ERROR_OUT_OF_MEMORY);
+  CHECK(destroy(graph(3)) == CUDA_SUCCESS);
+  CHECK(charged() == 0);
+
+  /* An allocation freed by another graph's free node: its charge passes to
+   * the address when its own graph goes, and that launch releases it. */
+  CUgraphExec e6 = nullptr;
+  CHECK(add(&n, graph(5), nullptr, 0, &np) == CUDA_SUCCESS);
+  CHECK(add_free(&m, graph(6), nullptr, 0, np.dptr) == CUDA_SUCCESS);
+  CHECK(instantiate(&e, graph(5), 0) == CUDA_SUCCESS);
+  CHECK(instantiate(&e6, graph(6), 0) == CUDA_SUCCESS);
+  CHECK(run(e, nullptr) == CUDA_SUCCESS);
+  CHECK(destroy_exec(e) == CUDA_SUCCESS && destroy(graph(5)) == CUDA_SUCCESS);
+  CHECK(charged() == 768 * Ki);
+  CHECK(run(e6, nullptr) == CUDA_SUCCESS);
+  CHECK(charged() == 0);
+  CHECK(destroy_exec(e6) == CUDA_SUCCESS && destroy(graph(6)) == CUDA_SUCCESS);
+
+  /* Freed outside any graph before both are destroyed: nothing lingers. */
+  CHECK(add(&n, graph(7), nullptr, 0, &np) == CUDA_SUCCESS);
+  CHECK(instantiate(&e, graph(7), 0) == CUDA_SUCCESS);
+  CHECK(run(e, nullptr) == CUDA_SUCCESS);
+  release(np.dptr);
+  CHECK(charged() == 768 * Ki);
+  CHECK(destroy(graph(7)) == CUDA_SUCCESS && destroy_exec(e) == CUDA_SUCCESS);
+  CHECK(charged() == 0);
+  size_t freeb = 0, total = 0;
+  mem_info(&freeb, &total);
+  CHECK(freeb == 1 * Mi);
+  printf("graph_node: memory nodes stay charged through their executable "
+         "graphs and live allocations, released to 0\n");
   return 0;
 }
 
@@ -743,6 +996,18 @@ static int sc_busy_symlink() {
 /* A regular file, but short: neither resized nor mapped. */
 static int sc_busy_short() { return busy_refused("busy_short", false); }
 
+static int sc_busy_file_bytes() {
+  /* The busy file's size: this program's mirror of the slot layout, and
+   * the library's own (printed for tests/test_torch_interposer.py to
+   * hold plugin/grant.py's BUSY_FILE_BYTES to). */
+  auto* f = (size_t (*)())dlsym(RTLD_DEFAULT, "vtpu_cuda_busy_file_bytes");
+  CHECK(f != nullptr);
+  size_t mirror = sizeof(BusySlot) * kBusySlots;
+  printf("busy_file_bytes: library %zu mirror %zu\n", f(), mirror);
+  CHECK(f() == mirror);
+  return 0;
+}
+
 static int sc_grant_env() {
   /* Started under an Allocate grant's env (tests/test_torch_interposer.py
    * passes it, with the cap it expects in VTPU_TEST_EXPECT_TOTAL): the
@@ -785,6 +1050,8 @@ struct Scenario {
 static const Scenario kScenarios[] = {
     {"mem", sc_mem, false},
     {"throttle", sc_throttle, false},
+    {"ptsz_meter", sc_ptsz_meter, false},
+    {"ptsz_threads", sc_ptsz_threads, false},
     {"shared_region", sc_shared_region, false},
     {"sole_fast", sc_sole_fast, false},
     {"floor_zero_latency", sc_floor_zero_latency, false},
@@ -792,6 +1059,8 @@ static const Scenario kScenarios[] = {
     {"killer", sc_killer, true},
     {"procaddr", sc_procaddr, false},
     {"meminfo_nvml", sc_meminfo_nvml, false},
+    {"array", sc_array, false},
+    {"graph_node", sc_graph_node, false},
     {"vmm", sc_vmm, false},
     {"launch_ex", sc_launch_ex, false},
     {"graph", sc_graph, false},
@@ -802,6 +1071,7 @@ static const Scenario kScenarios[] = {
     {"slot_lapsed", sc_slot_lapsed, false},
     {"busy_symlink", sc_busy_symlink, false},
     {"busy_short", sc_busy_short, false},
+    {"busy_file_bytes", sc_busy_file_bytes, false},
     {"grant_env", sc_grant_env, false},
 };
 

@@ -11,9 +11,18 @@
  * The CUDA mock keeps a device timeline: each launch queues MOCK_KERNEL_US
  * of work (default 0) behind the device's earlier work, cuCtxSynchronize
  * sleeps until the device is idle, and cuStreamQuery reports
- * CUDA_ERROR_NOT_READY until then.  So the busy time the interposer's
- * watcher books is scripted by MOCK_KERNEL_US and by when the program
- * launches.
+ * CUDA_ERROR_NOT_READY until the stream's last launch has run.  So the
+ * busy time the interposer's watcher books is scripted by MOCK_KERNEL_US
+ * and by when the program launches.  Streams are told apart in one way
+ * only, as the driver does: a launch on a thread's per-thread default
+ * stream (CU_STREAM_PER_THREAD, or stream 0 through a _ptsz entry point)
+ * is that thread's, and a query of CU_STREAM_PER_THREAD sees the calling
+ * thread's stream; every other stream handle is one shared stream.  An
+ * event recorded on a stream (cuEventRecord) is pending until the
+ * stream's work at that moment has run, for a query from any thread.
+ *
+ * CUDA arrays and mipmapped arrays are allocations of the device's memory
+ * too; graph memory nodes get addresses only (see cuGraphAddMemAllocNode).
  *
  * Also set by env: MOCK_CUDA_DEVICES (default 1), MOCK_CUDA_MEM bytes per
  * device (default 80 GiB).  The current device is a thread's context:
@@ -46,7 +55,9 @@
 #include <atomic>
 #include <map>
 #include <mutex>
+#include <set>
 #include <string>
+#include <vector>
 
 #include "cuda_abi.h"
 
@@ -78,7 +89,9 @@ struct Alloc {
 static std::mutex g_mu;
 static std::map<uint64_t, Alloc> g_allocs;        /* pointers and handles */
 static uint64_t g_next = 0x100000000ull;
-static uint64_t g_busy_until[16];
+static uint64_t g_busy_until[16];                /* every stream */
+static uint64_t g_shared_until[16];              /* the shared stream */
+static thread_local uint64_t t_per_thread_until; /* this thread's stream */
 static std::map<std::string, uint64_t> g_calls;
 static thread_local int t_dev = 0;
 
@@ -111,18 +124,33 @@ static CUresult do_alloc(const char* name, unsigned long long* out,
   return CUDA_SUCCESS;
 }
 
+static std::set<uint64_t> g_node_addrs;  /* graph memory nodes' addresses */
+
 static CUresult do_free(const char* name, uint64_t key) {
   called(name);
   std::lock_guard<std::mutex> lk(g_mu);
-  return g_allocs.erase(key) ? CUDA_SUCCESS : CUDA_ERROR_INVALID_VALUE;
+  return g_allocs.erase(key) || g_node_addrs.count(key)
+             ? CUDA_SUCCESS
+             : CUDA_ERROR_INVALID_VALUE;
 }
 
-static CUresult do_launch(const char* name) {
+static bool per_thread(CUstream s, bool ptsz) {
+  return (uintptr_t)s == kStreamPerThread || (ptsz && s == nullptr);
+}
+
+/* When the work queued so far on stream `s` (of this thread) ends. */
+static uint64_t stream_until(CUstream s) {
+  return per_thread(s, false) ? t_per_thread_until : g_shared_until[t_dev];
+}
+
+static CUresult do_launch(const char* name, CUstream s, bool ptsz) {
   called(name);
   uint64_t k = env_u64("MOCK_KERNEL_US", 0);
   if (k == 0) return CUDA_SUCCESS;
   std::lock_guard<std::mutex> lk(g_mu);
-  g_busy_until[t_dev] = std::max(wall_us(), g_busy_until[t_dev]) + k;
+  uint64_t end = std::max(wall_us(), g_busy_until[t_dev]) + k;
+  g_busy_until[t_dev] = end;
+  (per_thread(s, ptsz) ? t_per_thread_until : g_shared_until[t_dev]) = end;
   return CUDA_SUCCESS;
 }
 
@@ -172,13 +200,40 @@ EXPORT CUresult cuCtxSynchronize(void) {
   return CUDA_SUCCESS;
 }
 
-/* The current context's device has queued work (streams are not told
- * apart). */
-EXPORT CUresult cuStreamQuery(CUstream) {
+EXPORT CUresult cuStreamQuery(CUstream s) {
   called("cuStreamQuery");
   std::lock_guard<std::mutex> lk(g_mu);
-  return g_busy_until[t_dev] > wall_us() ? CUDA_ERROR_NOT_READY
-                                         : CUDA_SUCCESS;
+  return stream_until(s) > wall_us() ? CUDA_ERROR_NOT_READY : CUDA_SUCCESS;
+}
+
+/* An event is the time its stream's work ends, as of its last record. */
+EXPORT CUresult cuEventCreate(CUevent* e, unsigned int) {
+  called("cuEventCreate");
+  if (e == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  *e = (CUevent) new uint64_t(0);
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuEventDestroy_v2(CUevent e) {
+  called("cuEventDestroy_v2");
+  if (e == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  delete (uint64_t*)e;
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuEventRecord(CUevent e, CUstream s) {
+  called("cuEventRecord");
+  if (e == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  std::lock_guard<std::mutex> lk(g_mu);
+  *(uint64_t*)e = stream_until(s);
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuEventQuery(CUevent e) {
+  called("cuEventQuery");
+  if (e == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  std::lock_guard<std::mutex> lk(g_mu);
+  return *(uint64_t*)e > wall_us() ? CUDA_ERROR_NOT_READY : CUDA_SUCCESS;
 }
 
 /* cuMemAlloc of CUDA < 3.2: 32-bit sizes; never hooked. */
@@ -249,6 +304,130 @@ EXPORT CUresult cuMemRelease(CUmemGenericAllocationHandle handle) {
   return do_free("cuMemRelease", handle);
 }
 
+/* Arrays take width x height x depth x channels x 4 bytes here (the
+ * interposer sizes them itself). */
+static uint64_t mock_array_bytes(const CUDA_ARRAY3D_DESCRIPTOR* d) {
+  return std::max<size_t>(d->Width, 1) * std::max<size_t>(d->Height, 1) *
+         std::max<size_t>(d->Depth, 1) * std::max(d->NumChannels, 1u) * 4;
+}
+
+EXPORT CUresult cuArrayCreate_v2(CUarray* h, const CUDA_ARRAY_DESCRIPTOR* d) {
+  if (d == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  CUDA_ARRAY3D_DESCRIPTOR d3 = {d->Width, d->Height, 0, d->Format,
+                                d->NumChannels, 0};
+  return do_alloc("cuArrayCreate_v2", (unsigned long long*)h,
+                  mock_array_bytes(&d3), t_dev, false);
+}
+EXPORT CUresult cuArray3DCreate_v2(CUarray* h,
+                                   const CUDA_ARRAY3D_DESCRIPTOR* d) {
+  if (d == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  return do_alloc("cuArray3DCreate_v2", (unsigned long long*)h,
+                  mock_array_bytes(d), t_dev, false);
+}
+EXPORT CUresult cuMipmappedArrayCreate(CUmipmappedArray* h,
+                                       const CUDA_ARRAY3D_DESCRIPTOR* d,
+                                       unsigned int levels) {
+  if (d == nullptr || levels == 0) return CUDA_ERROR_INVALID_VALUE;
+  return do_alloc("cuMipmappedArrayCreate", (unsigned long long*)h,
+                  2 * mock_array_bytes(d), t_dev, false);
+}
+EXPORT CUresult cuArrayDestroy(CUarray a) {
+  return do_free("cuArrayDestroy", (uint64_t)a);
+}
+EXPORT CUresult cuMipmappedArrayDestroy(CUmipmappedArray a) {
+  return do_free("cuMipmappedArrayDestroy", (uint64_t)a);
+}
+
+/* A graph is any handle.  A memory node gets an address when it is added
+ * and a node handle of its own; the mock allocates nothing for it (the
+ * driver allocates at each launch, which only the interposer's ledger
+ * follows here), and cuMemFree[Async] of the address succeeds.  An
+ * executable graph is a fresh handle. */
+static uint64_t g_next_handle = 0x7000;
+
+static CUgraphNode new_handle() {
+  std::lock_guard<std::mutex> lk(g_mu);
+  return (CUgraphNode)(uintptr_t)(g_next_handle++);
+}
+
+static CUresult mem_node(const char* name, CUgraphNode* node,
+                         CUDA_MEM_ALLOC_NODE_PARAMS* p) {
+  called(name);
+  if (node == nullptr || p == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  std::lock_guard<std::mutex> lk(g_mu);
+  p->dptr = g_next;
+  g_next += (p->bytesize + 0xffff) & ~0xffffull;
+  g_node_addrs.insert(p->dptr);
+  *node = (CUgraphNode)(uintptr_t)(g_next_handle++);
+  return CUDA_SUCCESS;
+}
+
+EXPORT CUresult cuGraphAddMemAllocNode(CUgraphNode* node, CUgraph,
+                                       const CUgraphNode*, size_t,
+                                       CUDA_MEM_ALLOC_NODE_PARAMS* p) {
+  return mem_node("cuGraphAddMemAllocNode", node, p);
+}
+EXPORT CUresult cuGraphAddMemFreeNode(CUgraphNode* node, CUgraph,
+                                      const CUgraphNode*, size_t,
+                                      CUdeviceptr) {
+  called("cuGraphAddMemFreeNode");
+  if (node == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  *node = new_handle();
+  return CUDA_SUCCESS;
+}
+EXPORT CUresult cuGraphAddNode(CUgraphNode* node, CUgraph,
+                               const CUgraphNode*, size_t,
+                               CUgraphNodeParams* p) {
+  if (p != nullptr && p->type == CU_GRAPH_NODE_TYPE_MEM_ALLOC)
+    return mem_node("cuGraphAddNode", node, &p->alloc);
+  called("cuGraphAddNode");
+  if (node == nullptr || p == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  *node = new_handle();
+  return CUDA_SUCCESS;
+}
+EXPORT CUresult cuGraphAddNode_v2(CUgraphNode* node, CUgraph graph,
+                                  const CUgraphNode* deps,
+                                  const CUgraphEdgeData*, size_t n,
+                                  CUgraphNodeParams* p) {
+  called("cuGraphAddNode_v2");
+  return cuGraphAddNode(node, graph, deps, n, p);
+}
+EXPORT CUresult cuGraphDestroy(CUgraph) {
+  called("cuGraphDestroy");
+  return CUDA_SUCCESS;
+}
+
+static CUresult instantiate(const char* name, CUgraphExec* exec) {
+  called(name);
+  if (exec == nullptr) return CUDA_ERROR_INVALID_VALUE;
+  *exec = (CUgraphExec)new_handle();
+  return CUDA_SUCCESS;
+}
+EXPORT CUresult cuGraphInstantiate(CUgraphExec* exec, CUgraph, CUgraphNode*,
+                                   char*, size_t) {
+  return instantiate("cuGraphInstantiate", exec);
+}
+EXPORT CUresult cuGraphInstantiate_v2(CUgraphExec* exec, CUgraph,
+                                      CUgraphNode*, char*, size_t) {
+  return instantiate("cuGraphInstantiate_v2", exec);
+}
+EXPORT CUresult cuGraphInstantiateWithFlags(CUgraphExec* exec, CUgraph,
+                                            unsigned long long) {
+  return instantiate("cuGraphInstantiateWithFlags", exec);
+}
+EXPORT CUresult cuGraphInstantiateWithParams(CUgraphExec* exec, CUgraph,
+                                             CUDA_GRAPH_INSTANTIATE_PARAMS*) {
+  return instantiate("cuGraphInstantiateWithParams", exec);
+}
+EXPORT CUresult cuGraphInstantiateWithParams_ptsz(
+    CUgraphExec* exec, CUgraph, CUDA_GRAPH_INSTANTIATE_PARAMS*) {
+  return instantiate("cuGraphInstantiateWithParams_ptsz", exec);
+}
+EXPORT CUresult cuGraphExecDestroy(CUgraphExec) {
+  called("cuGraphExecDestroy");
+  return CUDA_SUCCESS;
+}
+
 EXPORT CUresult cuMemGetInfo_v2(size_t* free, size_t* total) {
   called("cuMemGetInfo_v2");
   std::lock_guard<std::mutex> lk(g_mu);
@@ -267,31 +446,31 @@ EXPORT CUresult cuDeviceTotalMem_v2(size_t* bytes, CUdevice dev) {
 #define LAUNCH_PARAMS                                                    \
   CUfunction, unsigned int, unsigned int, unsigned int, unsigned int,    \
       unsigned int, unsigned int, unsigned int, CUstream
-EXPORT CUresult cuLaunchKernel(LAUNCH_PARAMS, void**, void**) {
-  return do_launch("cuLaunchKernel");
+EXPORT CUresult cuLaunchKernel(LAUNCH_PARAMS s, void**, void**) {
+  return do_launch("cuLaunchKernel", s, false);
 }
-EXPORT CUresult cuLaunchKernel_ptsz(LAUNCH_PARAMS, void**, void**) {
-  return do_launch("cuLaunchKernel_ptsz");
+EXPORT CUresult cuLaunchKernel_ptsz(LAUNCH_PARAMS s, void**, void**) {
+  return do_launch("cuLaunchKernel_ptsz", s, true);
 }
-EXPORT CUresult cuLaunchCooperativeKernel(LAUNCH_PARAMS, void**) {
-  return do_launch("cuLaunchCooperativeKernel");
+EXPORT CUresult cuLaunchCooperativeKernel(LAUNCH_PARAMS s, void**) {
+  return do_launch("cuLaunchCooperativeKernel", s, false);
 }
-EXPORT CUresult cuLaunchCooperativeKernel_ptsz(LAUNCH_PARAMS, void**) {
-  return do_launch("cuLaunchCooperativeKernel_ptsz");
+EXPORT CUresult cuLaunchCooperativeKernel_ptsz(LAUNCH_PARAMS s, void**) {
+  return do_launch("cuLaunchCooperativeKernel_ptsz", s, true);
 }
-EXPORT CUresult cuLaunchKernelEx(const CUlaunchConfig*, CUfunction, void**,
+EXPORT CUresult cuLaunchKernelEx(const CUlaunchConfig* c, CUfunction, void**,
                                  void**) {
-  return do_launch("cuLaunchKernelEx");
+  return do_launch("cuLaunchKernelEx", c ? c->hStream : nullptr, false);
 }
-EXPORT CUresult cuLaunchKernelEx_ptsz(const CUlaunchConfig*, CUfunction,
+EXPORT CUresult cuLaunchKernelEx_ptsz(const CUlaunchConfig* c, CUfunction,
                                       void**, void**) {
-  return do_launch("cuLaunchKernelEx_ptsz");
+  return do_launch("cuLaunchKernelEx_ptsz", c ? c->hStream : nullptr, true);
 }
-EXPORT CUresult cuGraphLaunch(CUgraphExec, CUstream) {
-  return do_launch("cuGraphLaunch");
+EXPORT CUresult cuGraphLaunch(CUgraphExec, CUstream s) {
+  return do_launch("cuGraphLaunch", s, false);
 }
-EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec, CUstream) {
-  return do_launch("cuGraphLaunch_ptsz");
+EXPORT CUresult cuGraphLaunch_ptsz(CUgraphExec, CUstream s) {
+  return do_launch("cuGraphLaunch_ptsz", s, true);
 }
 
 /* ---- cuGetProcAddress --------------------------------------------------- */
@@ -320,6 +499,10 @@ static const Proc kProcs[] = {
     P(cuCtxGetCurrent, 4000, cuCtxGetCurrent),
     P(cuCtxSetCurrent, 4000, cuCtxSetCurrent),
     P(cuStreamQuery, 2000, cuStreamQuery),
+    P(cuEventCreate, 2000, cuEventCreate),
+    P(cuEventRecord, 2000, cuEventRecord),
+    P(cuEventQuery, 2000, cuEventQuery),
+    P(cuEventDestroy, 4000, cuEventDestroy_v2),
     P(cuCtxSynchronize, 2000, cuCtxSynchronize),
     P(cuGetProcAddress, 11030, cuGetProcAddress),
     P(cuGetProcAddress, 12000, cuGetProcAddress_v2),
@@ -333,6 +516,22 @@ static const Proc kProcs[] = {
     P(cuMemFree, 3020, cuMemFree_v2),
     PZ(cuMemFreeAsync, 11020, cuMemFreeAsync),
     P(cuMemRelease, 10020, cuMemRelease),
+    P(cuArrayCreate, 3020, cuArrayCreate_v2),
+    P(cuArray3DCreate, 3020, cuArray3DCreate_v2),
+    P(cuMipmappedArrayCreate, 5000, cuMipmappedArrayCreate),
+    P(cuArrayDestroy, 2000, cuArrayDestroy),
+    P(cuMipmappedArrayDestroy, 5000, cuMipmappedArrayDestroy),
+    P(cuGraphAddMemAllocNode, 11040, cuGraphAddMemAllocNode),
+    P(cuGraphAddMemFreeNode, 11040, cuGraphAddMemFreeNode),
+    P(cuGraphAddNode, 12020, cuGraphAddNode),
+    P(cuGraphAddNode, 12030, cuGraphAddNode_v2),
+    P(cuGraphInstantiate, 10000, cuGraphInstantiate),
+    P(cuGraphInstantiate, 11000, cuGraphInstantiate_v2),
+    P(cuGraphInstantiate, 12000, cuGraphInstantiateWithFlags),
+    P(cuGraphInstantiateWithFlags, 11040, cuGraphInstantiateWithFlags),
+    PZ(cuGraphInstantiateWithParams, 12000, cuGraphInstantiateWithParams),
+    P(cuGraphExecDestroy, 10000, cuGraphExecDestroy),
+    P(cuGraphDestroy, 10000, cuGraphDestroy),
     P(cuMemGetInfo, 3020, cuMemGetInfo_v2),
     P(cuDeviceTotalMem, 3020, cuDeviceTotalMem_v2),
     PZ(cuLaunchKernel, 4000, cuLaunchKernel),

@@ -18,8 +18,12 @@ CUDA tensors to one of two hand-written kernels, chosen by
 
 A CUDA call no kernel can take (dtype, head_dim, layout) raises, as does
 a failed build or launch; nothing falls back to the plain version or to
-the other kernel.  Every launch adds one to ``flash_attention.launches``
-and one to its route's entry in ``flash_attention.route_launches``.
+the other kernel.  The kernels have no backward (the JAX package's has
+none either), so a CUDA call that autograd would record (grad mode on, and
+q, k or v requiring grad) raises too: its result would carry no gradient.
+The CPU route stays differentiable.  Every launch adds one to
+``flash_attention.launches`` and one to its route's entry in
+``flash_attention.route_launches``.
 """
 
 from __future__ import annotations
@@ -99,6 +103,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``route`` names (chip_smoke.py times the wmma kernel at the serving
     shapes so)."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the CUDA kernel has no backward "
+                           "and would drop the gradients of q, k and v; "
+                           "train with use_flash=False (the plain "
+                           "attention), or call it under torch.no_grad()")
     bh, s, d = q.shape
     route = route or kernel_route(q.dtype, d)
     out = torch.empty_like(q)

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs eight phases, each of which asserts; any failure exits non-zero
+then runs nine phases, each of which asserts; any failure exits non-zero
 and prints no result line.
 
 1. Device: the card's name and power limit, the versions, the build (the
@@ -52,6 +52,19 @@ and prints no result line.
    (information: the metering before the per-card busy file).  The pair's
    rates and booked device time a step are held against the solo
    grant's.  No grpc is imported.
+9. Training, in child processes: one Adam step of the tiny model in f32
+   on the card (TF32 off) against the same step on the CPU; the bench
+   config (Llama-3-8B's layer width) trained at b=4, s=512 through
+   ``vtpu_torch.entry.train`` under the interposer with a 16 GiB cap, its
+   loss falling and every step's charge under the cap; the same under a
+   3 GiB cap, below the weights, gradients and Adam state alone, refused
+   with an out-of-memory error; both ledgers 0 after exit.  Then the
+   sharded dry-run over NCCL at world size 1
+   (``entry.dryrun_multichip(1)``), and the attention kernel refusing
+   tensors that require grad.  Phase 9 alone:
+   ``python3 -c "import chip_smoke, tempfile, torch;
+   chip_smoke.phase_device(torch); chip_smoke.phase_train(torch,
+   tempfile.mkdtemp())"``.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last is ``{"ok": true, "device": {...}}``.
@@ -60,6 +73,7 @@ the last is ``{"ok": true, "device": {...}}``.
 import dataclasses
 import gc
 import json
+import math
 import multiprocessing as mp
 import os
 import queue
@@ -318,8 +332,10 @@ def device_breakdown(torch, fn):
     others = []
     for e in prof.key_averages():
         # Kernel records only: an operator's record carries the device
-        # time of the kernels it launched as well.
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # time of the kernels it launched as well, and so does a
+        # record_function's span on the device (Adam's step has one).
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         ms = e.self_device_time_total / 1e3
         name = e.key.lower()
@@ -1072,10 +1088,259 @@ def phase_plugin(torch, tmp):
           f"step (band {SHARED_BOOKED_BAND})")
 
 
+# -- phase 9: training --------------------------------------------------------
+
+TRAIN_SHAPE = (4, 512)     # bench.py's batch and sequence
+TRAIN_STEPS = 6
+TRAIN_CAP = {"VTPU_DEVICE_HBM_LIMIT_0": "16Gi", "VTPU_DEVICE_CORE_LIMIT": "100"}
+# Below the bench config's weights, gradients and Adam state alone (4.03
+# GB in bf16): training must be refused.
+SMALL_CAP = {"VTPU_DEVICE_HBM_LIMIT_0": "3Gi", "VTPU_DEVICE_CORE_LIMIT": "100"}
+# The card against the CPU, one Adam step of the tiny model in f32 with
+# TF32 off: the loss to rtol 1e-5; each weight within 1e-5 on at least
+# 99.9% of each tensor's elements and within 2·lr everywhere (where |g| is
+# near 0, summation order can flip the sign of Adam's first step; the same
+# tolerance holds the port to vtpu in tests/test_torch_train.py).
+PARITY_LR = 1e-3
+PARITY_TOL = 1e-5
+PARITY_SHARE = 0.999
+
+
+def train_flops(cfg, batch, seq):
+    """Model FLOPs of one training step: 6 per matmul weight per token
+    (forward and backward), plus the plain attention's two s×s products,
+    forward and backward, over every (query, key) pair."""
+    from vtpu_torch.models import transformer as tr
+
+    matmul = sum(math.prod(shape) for name, shape, _ in tr.param_shapes(cfg)
+                 if len(shape) == 2 and not name.endswith("embed"))
+    attention = 3 * 4 * batch * seq * seq * cfg.dim * cfg.n_layers
+    return 6 * matmul * batch * seq + attention
+
+
+def train_parity_child(torch):
+    """Phase 9, a child with no quota: the tiny model's Adam step on the
+    card and on the CPU, from the same weights and tokens."""
+    import numpy as np
+
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.models.convert import init_module, params_to_numpy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(tr.TransformerConfig.tiny(),
+                              dtype=torch.float32)
+    weights = params_to_numpy(init_module(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (4, 33),
+                                               dtype=np.int32)
+    runs = {dev: entry.train(cfg, 4, 32, steps=1, device=dev,
+                             lr=PARITY_LR, weights=weights, tokens=tokens)
+            for dev in ("cpu", "cuda")}
+    cpu, gpu = (params_to_numpy(runs[d]["model"]) for d in ("cpu", "cuda"))
+    pairs = [(k, cpu[k], gpu[k]) for k in cpu if k != "layers"] + [
+        (f"layers.{i}.{k}", v, gpu["layers"][i][k])
+        for i, layer in enumerate(cpu["layers"]) for k, v in layer.items()]
+    worst, share = 0.0, 1.0
+    for name, a, b in pairs:
+        diff = np.abs(a.astype(np.float64) - b)
+        worst = max(worst, float(diff.max()))
+        share = min(share, float(np.mean(diff <= PARITY_TOL)))
+    losses = [runs[d]["losses"][0] for d in ("cpu", "cuda")]
+    res = {"losses": losses, "max_abs_err": worst,
+           "least_share_within_tol": share}
+    check(abs(losses[1] - losses[0]) <= PARITY_TOL * abs(losses[0]),
+          f"loss on the card {losses[1]} vs the CPU {losses[0]}")
+    check(worst <= 2 * PARITY_LR and share >= PARITY_SHARE,
+          f"weights after one step, card vs CPU: {res}")
+    return res
+
+
+def train_child(torch):
+    """Phase 9, one interposed tenant: TRAIN_STEPS Adam steps of the bench
+    config on one fixed block under the env's cap."""
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.utils.envspec import parse_quantity
+
+    check(interposer.loaded(), "the interposer is not in the tenant")
+    cap = parse_quantity(os.environ["VTPU_DEVICE_HBM_LIMIT_0"])
+    cfg = tr.TransformerConfig.bench()
+    try:
+        out = entry.train("bench", *TRAIN_SHAPE, steps=TRAIN_STEPS)
+    except torch.OutOfMemoryError as e:
+        return {"refused": str(e).splitlines()[0][:300],
+                "stats": interposer.stats()}
+    check(out["enforcer"] is None, "an in-process enforcer installed")
+    used = [ledger["used_bytes"] for ledger in out["step_ledgers"]]
+    res = {"losses": out["losses"], "steps_per_s": out["steps_per_s"],
+           "tokens_per_s": out["tokens_per_s"], "used_bytes": used,
+           "limit_bytes": out["ledger"]["limit_bytes"],
+           "torch_max_reserved_bytes": torch.cuda.max_memory_reserved(),
+           "torch_max_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "stats": interposer.stats()}
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"non-finite loss: {out['losses']}")
+    check(out["losses"][-1] < out["losses"][0],
+          f"the loss did not fall: {out['losses']}")
+    check(res["limit_bytes"] == cap and all(u <= cap for u in used),
+          f"a step's charge passed the {cap}-byte cap: {used}")
+    # Weights and Adam's two moments are charged from the first step on.
+    check(all(u >= 3 * tr.state_bytes(cfg) for u in used),
+          f"the training state is not charged: {used}")
+    # Where a step's device time goes: one more step, profiled.
+    step, _ = tr.make_train_step(out["model"])
+    block = torch.randint(0, cfg.vocab, (TRAIN_SHAPE[0], TRAIN_SHAPE[1] + 1),
+                          device="cuda", dtype=torch.int32)
+    step(block)
+    res["breakdown"] = device_breakdown(torch, lambda: step(block))
+    res["array_charges"] = array_charges(interposer)
+    return res
+
+
+def array_charges(interposer):
+    """On the card's driver: a 16 MiB CUDA array and a 64 MiB graph memory
+    node are charged exactly, and their destroys return the charge; a
+    launched node's charge lasts until its allocation is freed."""
+    import ctypes
+
+    c_size, c_uint, c_int = ctypes.c_size_t, ctypes.c_uint, ctypes.c_int
+
+    class ArrayDesc(ctypes.Structure):   # CUDA_ARRAY_DESCRIPTOR
+        _fields_ = [("Width", c_size), ("Height", c_size),
+                    ("Format", c_int), ("NumChannels", c_uint)]
+
+    class NodeParams(ctypes.Structure):  # CUDA_MEM_ALLOC_NODE_PARAMS
+        _fields_ = [("allocType", c_int), ("handleTypes", c_int),
+                    ("locationType", c_int), ("locationId", c_int),
+                    ("win32SecurityAttributes", ctypes.c_void_p),
+                    ("tail", ctypes.c_ubyte * 64),
+                    ("accessDescs", ctypes.c_void_p),
+                    ("accessDescCount", c_size), ("bytesize", c_size),
+                    ("dptr", ctypes.c_uint64)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def charged():
+        return interposer.stats()["charged_bytes"]
+
+    res = {}
+    base = charged()
+    arr = ctypes.c_void_p()
+    rc = cu.cuArrayCreate_v2(ctypes.byref(arr), ctypes.byref(
+        ArrayDesc(1024, 1024, 0x20, 4)))     # 1024 x 1024 float4
+    res["array"] = [rc, charged() - base]
+    rc = cu.cuArrayDestroy(arr)
+    res["array"] += [rc, charged() - base]
+    check(res["array"] == [0, 16 * 2**20, 0, 0],
+          f"CUDA array (rc, charged, rc, charged): {res['array']}")
+    graph, node = ctypes.c_void_p(), ctypes.c_void_p()
+    check(cu.cuGraphCreate(ctypes.byref(graph), 0) == 0, "cuGraphCreate")
+    params = NodeParams(allocType=1, locationType=1, locationId=0,
+                        bytesize=64 * 2**20)
+    rc = cu.cuGraphAddMemAllocNode(ctypes.byref(node), graph, None,
+                                   ctypes.c_size_t(0), ctypes.byref(params))
+    res["graph_node"] = [rc, charged() - base]
+    rc = cu.cuGraphDestroy(graph)
+    res["graph_node"] += [rc, charged() - base]
+    check(res["graph_node"] == [0, 64 * 2**20, 0, 0],
+          f"graph memory node (rc, charged, rc, charged): "
+          f"{res['graph_node']}")
+    # Instantiated and launched, the node's charge outlives its graph (which
+    # the driver refuses to clone), then its executable graph, and goes
+    # with the free of the allocation the launch left.
+    exe, clone = ctypes.c_void_p(), ctypes.c_void_p()
+    check(cu.cuGraphCreate(ctypes.byref(graph), 0) == 0, "cuGraphCreate")
+    steps = [cu.cuGraphAddMemAllocNode(
+        ctypes.byref(node), graph, None, ctypes.c_size_t(0),
+        ctypes.byref(params))]
+    steps.append(cu.cuGraphClone(ctypes.byref(clone), graph))
+    steps.append(cu.cuGraphInstantiateWithFlags(ctypes.byref(exe), graph,
+                                                ctypes.c_ulonglong(0)))
+    steps.append(cu.cuGraphDestroy(graph))
+    steps.append(cu.cuGraphLaunch(exe, None))
+    steps.append(cu.cuCtxSynchronize())
+    held = [charged() - base]
+    steps.append(cu.cuGraphExecDestroy(exe))
+    held.append(charged() - base)
+    steps.append(cu.cuMemFree_v2(ctypes.c_uint64(params.dptr)))
+    held.append(charged() - base)
+    res["graph_exec"] = {"rcs": steps, "charged": held}
+    check(steps[0] == 0 and steps[1] != 0 and not any(steps[2:]),
+          f"graph memory node, launched (rcs): {steps}")
+    check(held == [64 * 2**20, 64 * 2**20, 0],
+          f"graph memory node after its graph, its executable graph and "
+          f"the free (charged): {held}")
+    return res
+
+
+def phase_train(torch, tmp):
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.ops import flash_attention as fa
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.shim.core import SharedRegion
+
+    plain_env = {k: v for k, v in os.environ.items()
+                 if not k.startswith(("VTPU_", "LD_PRELOAD"))}
+    parity = child(["train_parity"], plain_env)
+    say("train parity, tiny f32, one Adam step, card vs CPU: "
+        + json.dumps(parity))
+
+    cfg = tr.TransformerConfig.bench()
+    flops = train_flops(cfg, *TRAIN_SHAPE)
+    runs = {}
+    for name, cap in (("train16", TRAIN_CAP), ("train3", SMALL_CAP)):
+        region = os.path.join(tmp, f"{name}.shr")
+        env = interposer.tenant_env(dict(
+            cap, VTPU_DEVICE_MEMORY_SHARED_CACHE=region))
+        runs[name] = child(["train"], env)
+        with SharedRegion(region) as reg:
+            reg.active_procs()   # sweeps the slots of exited processes
+            used = reg.device_stats(0).used_bytes
+        check(used == 0, f"{name}: ledger holds {used} bytes after the "
+              "tenant exited")
+        say(f"train {name}: " + json.dumps(runs[name]))
+    big, small = runs["train16"], runs["train3"]
+    check("refused" not in big, f"training refused under 16 GiB: {big}")
+    check("refused" in small and small["stats"]["refused"] > 0,
+          f"training admitted under 3 GiB: {small}")
+    step_ms = 1e3 / big["steps_per_s"]
+    say(f"train bench b={TRAIN_SHAPE[0]} s={TRAIN_SHAPE[1]} under the "
+        f"interposer (16 GiB, core 100%): losses "
+        f"{', '.join(f'{x:.4f}' for x in big['losses'])}; {step_ms:.3f} ms "
+        f"a step, {big['tokens_per_s']:.0f} tokens/s, "
+        f"{flops / 1e12:.3f} TFLOP a step, "
+        f"{flops / step_ms / 1e9:.1f} TFLOP/s "
+        f"({flops / step_ms * 1e3 / PEAK_BF16_FLOPS:.3f} of the bf16 dense "
+        f"peak); peak charge {max(big['used_bytes']) / 2**30:.2f} GiB; "
+        f"3 GiB cap refused: {small['refused']}")
+
+    loss = entry.dryrun_multichip(1, "cuda")
+    check(math.isfinite(loss), f"dry-run loss {loss}")
+    say(f"dryrun_multichip(1) over NCCL: loss {loss:.6f}")
+
+    q = torch.randn((2, 128, 128), device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    n0 = fa.flash_attention.launches
+    try:
+        fa.flash_attention(q, q, q)
+        raise Failed("the attention kernel took tensors that require grad")
+    except RuntimeError as e:
+        check("no backward" in str(e), f"wrong refusal: {e}")
+        say(f"flash_attention with grad: refused ({e})")
+    check(fa.flash_attention.launches == n0, "the refused call launched")
+    return {"parity": parity, "train": big, "refused": small,
+            "dryrun_loss": loss, "flops_per_step": flops}
+
+
 def child_main(args):
     """``--child serve`` (phase 6), ``--child metered <go file>`` (phase
-    7) or ``--child granted <go file>`` (phase 8): one interposed tenant;
-    prints its RESULT line."""
+    7), ``--child granted <go file>`` (phase 8), ``--child train`` or
+    ``--child train_parity`` (phase 9): one tenant; prints its RESULT
+    line."""
     import torch
 
     sys.path.insert(0, REPO)
@@ -1084,6 +1349,10 @@ def child_main(args):
             res = interposed_serve_child(torch)
         elif args[0] == "granted":
             res = granted_child(torch, args[1])
+        elif args[0] == "train":
+            res = train_child(torch)
+        elif args[0] == "train_parity":
+            res = train_parity_child(torch)
         else:
             res = metered_child(torch, args[1])
     except Failed as e:
@@ -1117,6 +1386,7 @@ def main():
             phase_interposed(torch, tmp, direct)
             phase_metered(tmp)
             phase_plugin(torch, tmp)
+            phase_train(torch, tmp)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

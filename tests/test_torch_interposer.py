@@ -37,6 +37,13 @@ SCENARIOS = [
     # A planted symlink or a short file where a card's busy file goes is
     # neither followed nor written.
     ("busy_symlink", 0), ("busy_short", 0),
+    # CUDA arrays and graph memory nodes are charged and released; a memory
+    # node's charge outlives its graph while an executable graph made from
+    # it, or an allocation one of its launches left, lives.
+    ("array", 0), ("graph_node", 0),
+    # Launches on a per-thread default stream are metered and throttled;
+    # their events stay one per (thread, context) and go with the thread.
+    ("ptsz_meter", 0), ("ptsz_threads", 0),
 ]
 
 
@@ -202,6 +209,21 @@ def test_quota_parse_matches_vtpu_envspec(native, tmp_path, quota):
     # The pyshim's floor: float(VTPU_MIN_EXEC_COST_US), in whole µs.
     assert got["min_cost_us"] == int(float(
         quota.get("VTPU_MIN_EXEC_COST_US", "0")))
+
+
+def test_busy_file_bytes_match_the_library(native, tmp_path):
+    """The size of a card's busy file that the daemon stages
+    (plugin.grant.BUSY_FILE_BYTES) and the scenario driver's mirror of the
+    slot layout are the size the interposer itself exports: a grown slot
+    struct fails here rather than leave the daemon staging files the
+    interposer refuses as short."""
+    env = preloaded_env(native, tmp_path / "region.cache")
+    r = subprocess.run([native[0]["interposer_test"], "busy_file_bytes"],
+                       env=env, capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stdout + r.stderr
+    library, mirror = map(int, re.search(
+        r"busy_file_bytes: library (\d+) mirror (\d+)", r.stdout).groups())
+    assert library == mirror == BUSY_FILE_BYTES
 
 
 def test_stats_mirror_matches_interposer():
