@@ -27,7 +27,7 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
-from ..shim.pyshim import TorchEnforcer
+from ..shim.pyshim import TorchEnforcer, explicit
 from .transformer import Transformer, TransformerConfig, param_shapes
 
 
@@ -71,7 +71,8 @@ def _fill(cfg: TransformerConfig, device, enforcer: Optional[TorchEnforcer],
         if enforcer is not None:
             enforcer.charge(nbytes, dev)
         try:
-            t = make(name, shape, dtype)
+            with explicit():   # admitted above, not again by the pyshim
+                t = make(name, shape, dtype)
         except BaseException:
             if enforcer is not None:
                 enforcer.release(nbytes, dev)

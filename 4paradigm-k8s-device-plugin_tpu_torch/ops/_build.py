@@ -21,6 +21,10 @@ Host code, compiled by ``g++`` from the port's ``native/`` (``HOST``):
   the CPU tests;
 - ``interposer_test``: the interposer's scenario driver, an executable.
 
+A staged copy of the package (``plugin.grant.stage_shim``:
+``<host>/shim/vtpu_torch/``) carries no region source: it loads the
+``libvtpucore.so`` staged beside its shim directory instead.
+
 Outputs go to ``build/vtpu_torch/`` at the repo root (listed in
 ``.gitignore``), named by a hash of the sources and the command, so an
 edited source rebuilds and an unchanged one is reused.  Each output is
@@ -50,6 +54,7 @@ BUILD_DIR = os.path.join(REPO, "build", "vtpu_torch")
 CSRC = os.path.join(_PKG, "ops", "csrc")
 NATIVE = os.path.join(_PKG, "native")
 VTPUCORE_SRC = os.path.join(REPO, "native", "vtpucore")
+STAGED_VTPUCORE = os.path.join(os.path.dirname(REPO), "libvtpucore.so")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -209,6 +214,9 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            path = build_all((name,))[name]
+            if name == "vtpucore" and not os.path.isdir(VTPUCORE_SRC):
+                path = STAGED_VTPUCORE
+            else:
+                path = build_all((name,))[name]
             lib = _libs[name] = ctypes.CDLL(path)
         return lib

@@ -2,12 +2,15 @@
 up front — the reference's urfave/cli surface (reference main.go:55-161),
 with ``vtpu``'s flags and env aliases.
 
-Four flags turn on subsystems that are not ported to the H100 yet; each
+Two flags turn on subsystems that are not ported to the H100 yet; each
 is refused with an error when turned on, never ignored (ROADMAP.md,
-Queue 1): ``--enable-runtime`` (the broker), ``--enable-metricsd``,
-``--enable-legacy-preferred`` (the controller) and ``--monitor-mode``
-(the pod lister).  ``vtpu`` turns the first two on by default; here they
-default off."""
+Queue 1): ``--enable-runtime`` (the broker) and ``--enable-metricsd``.
+``vtpu`` turns both on by default; here they default off.
+``--monitor-mode`` (per-pod regions found through the pod lister) and
+``--enable-legacy-preferred`` (the vdevice controller) run as in
+``vtpu``; unlike ``vtpu`` the second does not refuse a daemon without
+``NODE_NAME``, whose pod lister then lists the whole cluster's pods
+(``plugin/main.py`` says so in its log)."""
 
 from __future__ import annotations
 
@@ -37,9 +40,6 @@ ALLOCATION_POLICIES = ("pack", "spread")
 UNPORTED = {
     "enable_runtime": ("--enable-runtime", "the runtime broker"),
     "enable_metricsd": ("--enable-metricsd", "vtpu-metricsd"),
-    "enable_legacy_preferred": ("--enable-legacy-preferred",
-                                "the vdevice controller"),
-    "monitor_mode": ("--monitor-mode", "the Kubernetes pod lister"),
 }
 
 

@@ -33,22 +33,46 @@ interposer:
   in, and a MIG instance, which runs beside the others and not in turns
   with them, gets none;
 - device nodes under ``--pass-device-specs``: /dev/nvidia<minor>,
-  /dev/nvidiactl, /dev/nvidia-uvm, /dev/nvidia-uvm-tools.
+  /dev/nvidiactl, /dev/nvidia-uvm, /dev/nvidia-uvm-tools;
+- the in-container bootstrap, each part mounted only when its staged
+  source exists (``stage_shim``): the shim directory at
+  /usr/local/vtpu/shim (``sitecustomize.py``, ``vtpu_smi_lite.py`` and a
+  copy of the package), ``libvtpucore.so`` beside it, and
+  ``vtpu_smi_lite.py`` as /usr/local/vtpu/vtpu-smi.  With the shim,
+  ``VTPU_SHIM_PYTHONPATH`` names its entry and ``PYTHONPATH`` is that
+  entry, followed by the PYTHONPATH the matched pod declares (monitor
+  mode) and then ``VTPU_PYTHONPATH_MERGED=1`` (vtpu server.py:474-503).
+  Without the shim no PYTHONPATH is set: it would only replace the
+  image's.  ``VTPU_EXTRA_PYTHONPATH``, set on the pod spec, is not
+  touched;
+- monitor mode (``--monitor-mode``), when the pod was matched: the
+  region is /usr/local/vtpu/shared/<ns>_<pod>_<ctr>_<uid8>/vtpushr.cache,
+  for the node's monitor to read (vtpu server.py:280-307), and only that
+  pod's own directory of the host's shared/ is mounted, read-write, at
+  the same container path; ``vtpu`` mounts the whole shared/ into every
+  pod, where each pod could read or plant files in every other pod's;
+- the legacy controller (``--enable-legacy-preferred``): the annotations
+  ``4paradigm.com/vtpu-request`` (the kubelet's IDs) and
+  ``4paradigm.com/vtpu-using`` (the vdevices granted), from which it
+  rebuilds ownership out of the kubelet's checkpoint.  ``vtpu`` writes
+  the granted IDs under both, so the checkpoint loses the request.
 
-Not emitted until their subsystem is ported (ROADMAP.md, Queue 1): the
-shim mount with ``PYTHONPATH``/``VTPU_SHIM_PYTHONPATH`` and
-``libvtpucore.so``, the ``vtpu-smi`` mount, metricsd's env, the runtime
-socket, the env-override marker, and the controller's annotations.
+Not emitted until their subsystem is ported (ROADMAP.md, Queue 1):
+metricsd's env and the runtime socket.  Never emitted on the H100: the
+env-override marker of the PJRT preload library.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import stat
 import uuid as uuidlib
 from dataclasses import dataclass, field
-from typing import Dict, List, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
+from ..ops import _build
+from ..shim.interposer import BUSY_FILE_BYTES
 from ..utils import envspec
 from ..utils import logging as log
 from .config import Config
@@ -62,11 +86,19 @@ INTERPOSER = "libvtpu_cuda.so"
 PRELOAD_LIST = "ld.so.preload"
 BUSY_DIR = "busy"
 CONTAINER_BUSY_DIR = os.path.join(CONTAINER_LIB_DIR, BUSY_DIR)
-# Size of a busy file, mirroring native/interposer.cc: kBusySlots
-# (VTPU_MAX_PROCS, 64) slots of BusySlot (owner, beat_ns, pid, pad and
-# until_ns[VTPU_MAX_DEVICES]).  The interposer refuses a shorter file.
-BUSY_FILE_BYTES = 64 * (24 + 8 * envspec.MAX_DEVICES_PER_NODE)
 PCIBUS_NAME = "pciinfo.vtpu"
+# The in-container bootstrap, staged by stage_shim.
+SHIM_DIR = "shim"
+CORE_LIB = "libvtpucore.so"
+SMI_SCRIPT = "vtpu_smi_lite.py"
+SMI_MOUNT = "vtpu-smi"
+# Monitor mode's per-pod regions: <SHARED_DIR>/<name>/<REGION_NAME>.
+SHARED_DIR = "shared"
+REGION_NAME = "vtpushr.cache"
+# The legacy controller's annotations (reference
+# vdevice-controller.go:25-29).
+ANNOTATION_REQUEST = "4paradigm.com/vtpu-request"
+ANNOTATION_USING = "4paradigm.com/vtpu-using"
 
 
 @dataclass
@@ -81,6 +113,24 @@ class DeviceSpec:
     container_path: str
     host_path: str
     permissions: str = "rw"
+
+
+@dataclass
+class PodMatch:
+    """The pending pod's container that an Allocate serves, as monitor
+    mode matched it: its identity and the env it declares (plain
+    name/value entries)."""
+    namespace: str
+    pod: str
+    container: str
+    uid: str
+    env: Dict[str, str] = field(default_factory=dict)
+
+    @property
+    def shared_name(self) -> str:
+        """Its directory under shared/: namespace and UID keep distinct
+        pods of one name apart."""
+        return f"{self.namespace}_{self.pod}_{self.container}_{self.uid[:8]}"
 
 
 @dataclass
@@ -107,9 +157,16 @@ def _visible(cfg: Config, vdevs: Sequence[VDevice]) -> List[str]:
 
 
 def grant(cfg: Config, spec: PluginSpec, vdevs: Sequence[VDevice],
-          ids: Sequence[str]) -> Grant:
-    """What Allocate answers for one container granted ``vdevs`` (the
-    kubelet's ``ids``, looked up)."""
+          ids: Sequence[str], pod_env: Optional[Mapping[str, str]] = None,
+          shared_name: Optional[str] = None,
+          annotate: bool = False) -> Grant:
+    """What Allocate answers for one container granted ``vdevs`` for the
+    kubelet's ``ids``: the same vdevices, or the ones the legacy
+    controller picked in their place, which ``annotate`` records.
+    ``pod_env`` is what the matched pod declares (its PYTHONPATH is
+    merged behind the shim's entry), and ``shared_name`` the pod's
+    directory under the host's shared/, made already, that holds its
+    region in monitor mode."""
     g = Grant()
     envs = g.envs
     visible = _visible(cfg, vdevs)
@@ -147,10 +204,13 @@ def grant(cfg: Config, spec: PluginSpec, vdevs: Sequence[VDevice],
     if core_ids:
         envs["VTPU_CORE_INDICES"] = ",".join(core_ids)
 
-    # Each Allocate gets a private region; co-tenants of a card meet in
-    # its busy file instead.
-    envs[envspec.ENV_SHARED_CACHE] = \
-        f"/tmp/vtpu_{uuidlib.uuid4().hex[:12]}.cache"
+    # Each Allocate gets a private region (in monitor mode, in the pod's
+    # own directory); co-tenants of a card meet in its busy file instead.
+    shared_dir = (os.path.join(CONTAINER_LIB_DIR, SHARED_DIR, shared_name)
+                  if shared_name else None)
+    envs[envspec.ENV_SHARED_CACHE] = (
+        os.path.join(shared_dir, REGION_NAME) if shared_dir
+        else f"/tmp/vtpu_{uuidlib.uuid4().hex[:12]}.cache")
     if cfg.oversubscribe:
         envs[envspec.ENV_OVERSUBSCRIBE] = "true"
     if spec.time_shared:
@@ -164,6 +224,29 @@ def grant(cfg: Config, spec: PluginSpec, vdevs: Sequence[VDevice],
                                                      PCIBUS_NAME)
 
     host = cfg.host_lib_dir
+    shim = os.path.join(host, SHIM_DIR)
+    if os.path.isdir(shim):
+        shim_pp = os.path.join(CONTAINER_LIB_DIR, SHIM_DIR)
+        envs[envspec.ENV_SHIM_PYTHONPATH] = shim_pp
+        user_pp = (pod_env or {}).get("PYTHONPATH", "")
+        envs["PYTHONPATH"] = (shim_pp + os.pathsep + user_pp if user_pp
+                              else shim_pp)
+        if user_pp:
+            envs[envspec.ENV_PYTHONPATH_MERGED] = "1"
+        log.info("allocate: PYTHONPATH=%s (%s)", envs["PYTHONPATH"],
+                 "the pod's own entries kept after the shim" if user_pp
+                 else "replaces an image-ENV PYTHONPATH; a pod names such "
+                 "entries in VTPU_EXTRA_PYTHONPATH")
+    else:
+        log.warn("allocate: %s is not staged; no in-container bootstrap "
+                 "for this container", shim)
+    for cpath, hpath in ((os.path.join(CONTAINER_LIB_DIR, CORE_LIB),
+                          os.path.join(host, CORE_LIB)),
+                         (os.path.join(CONTAINER_LIB_DIR, SHIM_DIR), shim),
+                         (os.path.join(CONTAINER_LIB_DIR, SMI_MOUNT),
+                          os.path.join(shim, SMI_SCRIPT))):
+        if os.path.exists(hpath):
+            g.mounts.append(Mount(cpath, hpath, True))
     lib = os.path.join(host, INTERPOSER)
     preload = os.path.join(host, PRELOAD_LIST)
     if os.path.exists(lib) and os.path.exists(preload):
@@ -176,6 +259,9 @@ def grant(cfg: Config, spec: PluginSpec, vdevs: Sequence[VDevice],
     if cfg.pcibus_file:
         g.mounts.append(Mount(os.path.join(CONTAINER_LIB_DIR, PCIBUS_NAME),
                               cfg.pcibus_file, True))
+    if shared_dir:
+        g.mounts.append(Mount(shared_dir, os.path.join(host, SHARED_DIR,
+                                                       shared_name), False))
     if spec.time_shared:
         for u in dict.fromkeys(v.chip_uuid for v in vdevs):
             path = os.path.join(host, BUSY_DIR, f"{u}.busy")
@@ -196,6 +282,9 @@ def grant(cfg: Config, spec: PluginSpec, vdevs: Sequence[VDevice],
                 if p not in seen:
                     seen.add(p)
                     g.devices.append(DeviceSpec(p, p, "rw"))
+    if annotate:
+        g.annotations[ANNOTATION_REQUEST] = ",".join(ids)
+        g.annotations[ANNOTATION_USING] = ",".join(v.id for v in vdevs)
     return g
 
 
@@ -214,6 +303,48 @@ def staged_files(host_lib_dir: str, library: str) -> Dict[str, str]:
     with open(preload, "w") as f:
         f.write(os.path.join(CONTAINER_LIB_DIR, INTERPOSER) + "\n")
     return {INTERPOSER: lib, PRELOAD_LIST: preload}
+
+
+def _copy_file(src: str, dst: str) -> None:
+    """Copy ``src`` to ``dst`` through a temporary name, so that a reader
+    never finds half a file."""
+    tmp = f"{dst}.{os.getpid()}.tmp"
+    shutil.copyfile(src, tmp)
+    os.chmod(tmp, 0o644)
+    os.replace(tmp, dst)
+
+
+def stage_shim(host_lib_dir: str) -> Dict[str, str]:
+    """Stage the in-container bootstrap in ``host_lib_dir`` (what a node's
+    install step does, beside ``staged_files``): ``shim/`` holding
+    ``sitecustomize.py``, ``vtpu_smi_lite.py`` and a self-contained copy
+    of this package as ``vtpu_torch/`` (a real directory: the source
+    tree's alias package points at a sibling a container does not have;
+    no native tests or mocks, no build output), and ``libvtpucore.so``
+    from the port's own build, which the copy loads from beside its shim
+    directory.  A shim staged before is replaced whole.  Returns the
+    staged paths by name."""
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    os.makedirs(host_lib_dir, exist_ok=True)
+    shim = os.path.join(host_lib_dir, SHIM_DIR)
+    tmp = f"{shim}.{os.getpid()}.tmp"
+    shutil.rmtree(tmp, ignore_errors=True)
+    shutil.copytree(pkg, os.path.join(tmp, "vtpu_torch"),
+                    ignore=shutil.ignore_patterns(
+                        "__pycache__", "*.pyc", "*_test.cc", "mock_cuda.cc",
+                        "build*"))
+    for name in ("sitecustomize.py", SMI_SCRIPT):
+        shutil.copyfile(os.path.join(pkg, "shim", name),
+                        os.path.join(tmp, name))
+    old = f"{shim}.{os.getpid()}.old"
+    if os.path.exists(shim):
+        os.rename(shim, old)
+    os.rename(tmp, shim)
+    shutil.rmtree(old, ignore_errors=True)
+    core = os.path.join(host_lib_dir, CORE_LIB)
+    _copy_file(_build.build_all(("vtpucore",))["vtpucore"], core)
+    return {SHIM_DIR: shim, CORE_LIB: core,
+            SMI_MOUNT: os.path.join(shim, SMI_SCRIPT)}
 
 
 def stage_busy_files(host_lib_dir: str, card_uuids: Sequence[str]) -> List[str]:

@@ -4,7 +4,9 @@ The reference's main.go: validate flags, write the PCI inventory file,
 discover the cards with fail-or-block semantics, then a ``goto restart``
 loop that rebuilds every plugin when the kubelet socket is recreated or on
 SIGHUP, and exits on other signals (reference main.go:48-293); ``vtpu``'s
-plugin/main.py without the broker and the pod lister (not ported).
+plugin/main.py without the broker (not ported).  In monitor mode and
+under the legacy controller the plugins share one pod lister, built from
+the service account in the cluster (an informer in monitor mode).
 
 Run: ``python -m vtpu_torch.plugin.main --discovery fake --device-split-count 4``
 """
@@ -22,8 +24,11 @@ from typing import List, Optional
 from ..discovery.base import ChipBackend
 from ..discovery.factory import make_backend
 from ..discovery.types import GpuChip, Health
+from ..k8s.client import CachedPodLister, K8sClient, PodInformer
+from ..k8s.client import pod_lister as make_lister
 from ..utils import logging as log
 from .config import Config, parse_args
+from .controller import VDeviceController
 from .grant import stage_busy_files
 from .server import VtpuDevicePlugin
 from .split import build_plugin_specs
@@ -49,15 +54,52 @@ def write_chip_inventory(cfg: Config, chips: List[GpuChip]) -> None:
 class Daemon:
     """Owns the plugin set and the health loop across restarts."""
 
-    def __init__(self, cfg: Config, backend: Optional[ChipBackend] = None):
+    def __init__(self, cfg: Config, backend: Optional[ChipBackend] = None,
+                 pod_lister=None):
         self.cfg = cfg
         self.backend = backend
         self.plugins: List[VtpuDevicePlugin] = []
+        # Given in tests; otherwise built from the service account when
+        # monitor mode or the controller needs one (reference
+        # server.go:365-406, vdevice-controller.go:162-223).
+        self.pod_lister = pod_lister
         # Fresh per generation: a slow probe can outlive stop_plugins()'s
         # bounded join, and reusing one Event would un-stop that stale
         # loop on the next start.
         self._health_stop: Optional[threading.Event] = None
         self._health_thread: Optional[threading.Thread] = None
+
+    def _make_pod_lister(self):
+        """The one TTL-cached pod lister every plugin and the controller
+        share, or None when neither mode needs one or the daemon has no
+        credentials in the cluster.  In monitor mode plain reads come from
+        a watch-based informer (``VTPU_POD_INFORMER=0``: the TTL cache
+        alone); the controller reads fresh lists only, since it frees the
+        vdevices of pods it does not see."""
+        if self.pod_lister is not None:
+            if not isinstance(self.pod_lister, CachedPodLister):
+                self.pod_lister = CachedPodLister(self.pod_lister)
+            return self.pod_lister
+        if not (self.cfg.monitor_mode or self.cfg.enable_legacy_preferred):
+            return None
+        client = K8sClient()
+        if not client.available:
+            log.warn("monitor/legacy mode requested but no in-cluster "
+                     "credentials; pod matching disabled")
+            return None
+        if not self.cfg.node_name:
+            log.warn("no --node-name (NODE_NAME): the pod lister lists every "
+                     "pod of the cluster")
+        informer = None
+        if self.cfg.monitor_mode and \
+                os.environ.get("VTPU_POD_INFORMER", "1") != "0":
+            informer = PodInformer(client, self.cfg.node_name).start()
+            if not informer.wait_synced(5.0):
+                log.warn("pod informer slow to sync; reads take the LIST "
+                         "path meanwhile")
+        self.pod_lister = CachedPodLister(make_lister(client),
+                                          informer=informer)
+        return self.pod_lister
 
     def start_plugins(self) -> bool:
         """Discover, split, serve, register.  False on an init error the
@@ -77,8 +119,12 @@ class Daemon:
             log.error("cannot stage the cards' busy files under %s (%s): "
                       "Allocate will refuse to mount them",
                       self.cfg.host_lib_dir, e)
+        lister = self._make_pod_lister()
+        controller = (VDeviceController(self.cfg, pod_lister=lister)
+                      if self.cfg.enable_legacy_preferred else None)
         topo = self.backend.topology()
-        plugins = [VtpuDevicePlugin(s, self.cfg, topology=topo)
+        plugins = [VtpuDevicePlugin(s, self.cfg, topology=topo,
+                                    controller=controller, pod_lister=lister)
                    for s in build_plugin_specs(self.cfg, self.backend)]
         started: List[VtpuDevicePlugin] = []
         for p in plugins:

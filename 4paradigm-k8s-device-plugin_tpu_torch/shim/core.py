@@ -215,6 +215,7 @@ class RateLease:
         self._exp = 0.0
         self.grants = 0
         self.refunds = 0
+        self.blocks = 0   # admissions that waited in the native bucket
 
     def acquire(self, cost_us: float, priority: int = 1) -> None:
         """Admit ``cost_us`` of device time, blocking in the native
@@ -222,6 +223,7 @@ class RateLease:
         can fund it."""
         cost = max(int(cost_us), 0)
         if self.quantum_us <= 0:
+            self.blocks += 1
             self.region.rate_block(self.dev, cost, priority)
             return
         with self.mu:
@@ -242,6 +244,7 @@ class RateLease:
             # ask (minus the balance left) outside the lock.
             need = max(cost - int(self._us), 1)
             self._us = 0.0
+            self.blocks += 1
         self.region.rate_block(self.dev, need, priority)
 
     def revoke(self) -> None:

@@ -21,12 +21,42 @@ from __future__ import annotations
 
 import ctypes
 import os
+import struct
 from typing import Dict, Mapping, Optional
 
 from ..ops import _build
 from ..utils.envspec import MAX_DEVICES_PER_NODE
 
 IDENT = "vtpu_cuda_interposer_ident"
+
+# A card's busy file, as native/interposer.cc lays it out: kBusySlots
+# (VTPU_MAX_PROCS) slots of BusySlot, each an owner token, a heartbeat
+# (CLOCK_MONOTONIC ns), a pid, a pad and a busy-through time per device
+# column.  The interposer refuses a shorter file.  A slot is live while
+# its heartbeat is younger than kSlotLeaseNs, and busy while its
+# column's time is ahead of now.
+BUSY_SLOTS = 64
+_BUSY_HEAD = struct.Struct("=QQii")
+BUSY_SLOT_BYTES = _BUSY_HEAD.size + 8 * MAX_DEVICES_PER_NODE
+BUSY_FILE_BYTES = BUSY_SLOTS * BUSY_SLOT_BYTES
+BUSY_SLOT_LEASE_NS = 200_000_000
+
+
+def busy_slots(path: str, now_ns: int) -> Dict[str, int]:
+    """How many slots of the busy file at ``path`` are live, and how many
+    of those busy (column 0, a card's own file), at CLOCK_MONOTONIC
+    ``now_ns``; read as bytes, nothing mapped or written, and nothing of
+    whose."""
+    with open(path, "rb") as f:
+        data = f.read(BUSY_FILE_BYTES)
+    live = busy = 0
+    for off in range(0, len(data) - BUSY_SLOT_BYTES + 1, BUSY_SLOT_BYTES):
+        _owner, beat, _pid, _pad = _BUSY_HEAD.unpack_from(data, off)
+        (until,) = struct.unpack_from("=Q", data, off + _BUSY_HEAD.size)
+        if beat and beat + BUSY_SLOT_LEASE_NS >= now_ns:
+            live += 1
+            busy += until > now_ns
+    return {"live": live, "busy": busy}
 
 
 class Stats(ctypes.Structure):

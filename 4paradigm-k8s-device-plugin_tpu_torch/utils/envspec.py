@@ -78,6 +78,126 @@ DEVICE_LIST_DIR = "/var/run/vtpu-devices"
 ENV_NVIDIA_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"
 NVIDIA_DEVICE_LIST_DIR = "/var/run/nvidia-container-devices"
 
+# The in-container bootstrap (``shim/sitecustomize.py``): the shim's own
+# entry in the PYTHONPATH that Allocate sets, and the flag Allocate sets
+# when it merged a pod-declared PYTHONPATH behind that entry.
+ENV_SHIM_PYTHONPATH = "VTPU_SHIM_PYTHONPATH"
+ENV_PYTHONPATH_MERGED = "VTPU_PYTHONPATH_MERGED"
+# Set on the pod spec (Allocate never sets it): entries the bootstrap puts
+# on sys.path, for images whose PYTHONPATH lives in the Dockerfile's ENV,
+# which Allocate's PYTHONPATH replaces.
+ENV_EXTRA_PYTHONPATH = "VTPU_EXTRA_PYTHONPATH"
+# vtpu installs its Python enforcement next to the native path under
+# this flag; in the port that would charge the quota twice, so it never
+# overrides the stand-down under the interposer (``shim/pyshim.py``).
+ENV_FORCE_PY_ENFORCEMENT = "VTPU_FORCE_PY_ENFORCEMENT"
+
+ALL_ENV_VARS = [
+    ENV_HBM_LIMIT,
+    ENV_CORE_LIMIT,
+    ENV_DEVICE_MAP,
+    ENV_SHARED_CACHE,
+    ENV_OVERSUBSCRIBE,
+    ENV_TASK_PRIORITY,
+    ENV_UTILIZATION_POLICY,
+    ENV_ACTIVE_OOM_KILLER,
+    ENV_MIN_EXEC_COST,
+    ENV_VISIBLE_DEVICES,
+    ENV_RUNTIME_SOCKET,
+    ENV_LOG_LEVEL,
+    ENV_PCIBUS_FILE,
+    ENV_NVIDIA_VISIBLE_DEVICES,
+    ENV_DEVICE_BUSY_DIR,
+]
+
+# The flag registry: every environment variable the port reads, in its
+# Python (``os.environ``) and in ``native/interposer.cc`` (``getenv``),
+# and every one Allocate sets, by the layer that reads it: "contract"
+# (set by Allocate, read in the container), "daemon", "shim" (the
+# in-container bootstrap and enforcement), "k8s" (the in-cluster API
+# client), "build" (``ops/_build.py``).  ``vtpu``'s registry
+# (``utils/envspec.py``) with the port's own keys; no TPU-only key.
+# ``tests/test_torch_bootstrap.py`` walks the sources and holds every
+# read to it.
+ENV_FLAGS = {
+    # Allocate contract.
+    ENV_HBM_LIMIT: "contract",
+    ENV_CORE_LIMIT: "contract",
+    ENV_DEVICE_MAP: "contract",
+    ENV_SHARED_CACHE: "contract",
+    ENV_OVERSUBSCRIBE: "contract",
+    ENV_TASK_PRIORITY: "contract",
+    ENV_UTILIZATION_POLICY: "contract",
+    ENV_ACTIVE_OOM_KILLER: "contract",
+    ENV_MIN_EXEC_COST: "contract",
+    ENV_VISIBLE_DEVICES: "contract",
+    ENV_RUNTIME_SOCKET: "contract",
+    ENV_LOG_LEVEL: "contract",
+    ENV_PCIBUS_FILE: "contract",
+    ENV_NVIDIA_VISIBLE_DEVICES: "contract",
+    ENV_DEVICE_BUSY_DIR: "contract",
+    ENV_SHIM_PYTHONPATH: "contract",
+    ENV_PYTHONPATH_MERGED: "contract",
+    "PYTHONPATH": "contract",
+    "VTPU_CORE_INDICES": "contract",
+    # The daemon (plugin/config.py, discovery, health); the reference's
+    # own env aliases of its flags (main.go:55-161) among them.
+    "VTPU_DISCOVERY": "daemon",
+    "VTPU_ALLOCATION_POLICY": "daemon",
+    "VTPU_METRICSD_ENABLE": "daemon",
+    "VTPU_METRICSD_PORT": "daemon",
+    "VTPU_ENABLE_RUNTIME": "daemon",
+    "VTPU_MONITOR_MODE": "daemon",
+    "VTPU_HOST_LIB_DIR": "daemon",
+    "VTPU_POD_INFORMER": "daemon",
+    "VTPU_DISABLE_HEALTHCHECKS": "daemon",
+    "VTPU_HEALTH_INTERVAL": "daemon",
+    "VTPU_ALLOW_FAKE": "daemon",
+    "VTPU_FAKE_CHIPS": "daemon",
+    "VTPU_FAKE_MODEL": "daemon",
+    "VTPU_FAKE_FAULT_DIR": "daemon",
+    "VTPU_INOTIFY": "daemon",
+    "SPLIT_STRATEGY": "daemon",
+    "FAIL_ON_INIT_ERROR": "daemon",
+    "PASS_DEVICE_SPECS": "daemon",
+    "DEVICE_LIST_STRATEGY": "daemon",
+    "DEVICE_ID_STRATEGY": "daemon",
+    "DEVICE_SPLIT_COUNT": "daemon",
+    "DEVICE_MEMORY_SCALING": "daemon",
+    "DEVICE_CORES_SCALING": "daemon",
+    "ENABLE_LEGACY_PREFERRED": "daemon",
+    "VERBOSE": "daemon",
+    "PCIBUSFILE": "daemon",
+    "DEVICE_PLUGIN_PATH": "daemon",
+    "RESOURCE_NAME": "daemon",
+    "NODE_NAME": "daemon",
+    # The in-container shim.
+    ENV_EXTRA_PYTHONPATH: "shim",
+    ENV_FORCE_PY_ENFORCEMENT: "shim",
+    "VTPU_RATE_LEASE_US": "shim",
+    # The interposer's own channel into a tenant (shim/interposer.py's
+    # tenant_env; in a container, the ld.so.preload mount).
+    "LD_PRELOAD": "shim",
+    # The in-cluster API client (k8s/client.py).
+    "KUBERNETES_SERVICE_HOST": "k8s",
+    "KUBERNETES_SERVICE_PORT": "k8s",
+    # The native build.
+    "CUDA_HOME": "build",
+}
+
+# Per-ordinal forms: VTPU_DEVICE_HBM_LIMIT_<i>.
+ENV_FLAG_PREFIXES = (ENV_HBM_LIMIT + "_",)
+
+
+def flag_declared(name: str) -> bool:
+    """True when ``name`` is a registered flag, or a per-ordinal form of a
+    registered prefix."""
+    if name in ENV_FLAGS:
+        return True
+    return any(name.startswith(p) and name[len(p):].isdigit()
+               for p in ENV_FLAG_PREFIXES)
+
+
 # Hard cap mirrored in native/vtpucore (VTPU_MAX_DEVICES).
 MAX_DEVICES_PER_NODE = 16
 

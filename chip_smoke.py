@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs nine phases, each of which asserts; any failure exits non-zero
+then runs ten phases, each of which asserts; any failure exits non-zero
 and prints no result line.
 
 1. Device: the card's name and power limit, the versions, the build (the
@@ -65,6 +65,27 @@ and prints no result line.
    ``python3 -c "import chip_smoke, tempfile, torch;
    chip_smoke.phase_device(torch); chip_smoke.phase_train(torch,
    tempfile.mkdtemp())"``.
+10. Pods, as the kubelet would start them: the interposer, the busy
+   files and the in-container bootstrap staged (``plugin.grant.
+   stage_shim``); the daemon (``plugin.main.Daemon``: NVML, the card split
+   in two, monitor mode) with a pod lister that returns two pending pods,
+   pod A declaring PYTHONPATH=/app/lib; two Allocates over gRPC from a
+   fake kubelet.  Both pods' tenants start at once with exactly their
+   grants' env, container paths mapped to the mounts' host paths (the
+   interposer in LD_PRELOAD for the ld.so.preload mount, PYTHONPATH at the
+   staged shim), and serve the bench config through ``entry.serve``: the
+   shim's sitecustomize ran and stood down under the interposer, pod A
+   sees /app/lib after the shim's entry, the regions are two files under
+   the host's shared/.  While they hold the card, each pod's ``vtpu-smi
+   --json`` shows the grant's cap and a ledger equal to that pod's own
+   interposer charge, and the card's busy file two live tenants.  Then a
+   tenant with pod A's grant but no interposer, under a 1.5 GiB cap:
+   ``model.to("cuda")`` of the bench weights is admitted and charged, a
+   second copy refused, and a ``torch.compile``d forward is gated at the
+   grant's 50% FORCE share (against 100%, information); every ledger is 0
+   after exit.  Last, the daemon restarted with the legacy controller
+   over a kubelet checkpoint that gives vdevice 0 to a live pod: the stale
+   ID 0 is answered with vdevice 1 and the controller's annotations.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last is ``{"ok": true, "device": {...}}``.
@@ -731,9 +752,11 @@ def phase_interposed(torch, tmp, direct):
     return got
 
 
-def metered_child(torch, go):
+def metered_child(torch, go, report=None):
     """Phase 7, inside one interposed tenant: serve the bench config, then
-    wait for ``go`` and run the greedy loop for METERED_S."""
+    wait for ``go`` and run the greedy loop for METERED_S.  The memory
+    readings taken before READY also go to the file ``report``, if
+    given."""
     from vtpu_torch import entry
     from vtpu_torch.shim import interposer
 
@@ -743,6 +766,9 @@ def metered_child(torch, go):
     torch.cuda.synchronize()
     memory = {"charged_bytes": interposer.stats()["charged_bytes"],
               "torch_reserved_bytes": torch.cuda.memory_reserved()}
+    if report is not None:
+        with open(report, "w") as f:
+            json.dump(memory, f)
     print("READY", flush=True)
     while not os.path.exists(go):
         time.sleep(0.005)
@@ -780,19 +806,21 @@ def run_metered(quota, n, tmp, name):
     return run_released([env] * n, "metered", tmp, name)
 
 
-def run_released(envs, mode, tmp, name):
-    """One ``--child <mode> <go>`` tenant per environment; each reports
-    READY after its warm-up, then all are released together by the go
-    file.  Returns their RESULT dicts."""
+def run_released(envs, mode, tmp, name, on_ready=None, args=None):
+    """One ``--child <mode> <go> [args[i]...]`` tenant per environment;
+    each reports READY after its warm-up, then ``on_ready()`` runs, if
+    given, and all are released together by the go file.  Returns their
+    RESULT dicts."""
     go = os.path.join(tmp, f"{name}.go")
     # stderr goes to a file: a pipe nobody reads could fill and stall the
     # tenant, and a tenant that dies early is reported with its traceback.
     errs = [open(os.path.join(tmp, f"{name}.{i}.err"), "w+")
             for i in range(len(envs))]
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--child", mode, go], env=env,
+                               "--child", mode, go,
+                               *(args[i] if args else ())], env=env,
                               stdout=subprocess.PIPE, stderr=err, text=True)
-             for env, err in zip(envs, errs)]
+             for i, (env, err) in enumerate(zip(envs, errs))]
 
     def stderr_of(i):
         if procs[i].poll() is None:
@@ -810,6 +838,8 @@ def run_released(envs, mode, tmp, name):
                     pass
             check(line.strip() == "READY", f"tenant not ready: {line!r} "
                   f"(rc {p.poll()}) {stderr_of(i)}")
+        if on_ready is not None:
+            on_ready()
         open(go, "w").close()
         got = []
         for i, p in enumerate(procs):
@@ -1336,16 +1366,436 @@ def phase_train(torch, tmp):
             "dryrun_loss": loss, "flops_per_step": flops}
 
 
+# -- phase 10: a pod as the kubelet would start it ---------------------------
+
+# Two pods pending on the node, each asking for one vtpu; pod A declares a
+# PYTHONPATH of its own, which Allocate keeps behind the shim's entry.
+APP_DIR = "/app/lib"
+PODS = [{"metadata": {"namespace": "default", "name": name, "uid": uid},
+         "status": {"phase": "Pending"},
+         "spec": {"containers": [{
+             "name": "main", "env": env,
+             "resources": {"limits": {"4paradigm.com/vtpu": "1"}}}]}}
+        for name, uid, env in (
+            ("pod-a", "aaaa0000-0000", [{"name": "PYTHONPATH",
+                                         "value": APP_DIR}]),
+            ("pod-b", "bbbb0000-0000", []))]
+# The live pod that the legacy controller's checkpoint gives vdevice 0.
+LIVE_POD = {"metadata": {"namespace": "default", "name": "old",
+                         "uid": "live0000-0000"},
+            "status": {"phase": "Running"}, "spec": {"containers": []}}
+# The Python enforcement's tenant: pod A's grant without the interposer,
+# under a cap that admits the bench config's weights (1.01 GB in bf16)
+# once and refuses a second copy.
+PY_CAP = "1536Mi"
+CONTAINER_LIB = "/usr/local/vtpu"
+COMPILED_S = 4.0           # the compiled forward's timed window, per share
+
+
+class FakeKubelet:
+    """The kubelet's side of the device-plugin API: the Registration
+    service on ``<dir>/kubelet.sock``, and a client of each plugin."""
+
+    def __init__(self, plugin_dir):
+        import grpc
+        from concurrent import futures
+
+        from vtpu_torch.proto import pb, rpc
+
+        self.dir, self.pb, self.rpc, self.grpc = plugin_dir, pb, rpc, grpc
+        self.registrations = queue.Queue()
+        kubelet = self
+
+        class Registration(rpc.RegistrationServicer):
+            def Register(self, request, context):
+                kubelet.registrations.put(request)
+                return pb.Empty()
+
+        self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+        rpc.add_RegistrationServicer_to_server(Registration(), self.server)
+        self.server.add_insecure_port(
+            f"unix://{os.path.join(plugin_dir, 'kubelet.sock')}")
+        self.server.start()
+
+    def plugin(self, timeout=30):
+        """(registration, stub, channel) of the next plugin to register."""
+        reg = self.registrations.get(timeout=timeout)
+        ch = self.grpc.insecure_channel(
+            f"unix://{os.path.join(self.dir, reg.endpoint)}")
+        self.grpc.channel_ready_future(ch).result(timeout=10)
+        return reg, self.rpc.DevicePluginStub(ch), ch
+
+    def allocate(self, stub, ids):
+        """One container's Allocate answer, as (envs, mounts, annotations)
+        with mounts as (container path, host path, read-only)."""
+        car = stub.Allocate(self.pb.AllocateRequest(container_requests=[
+            self.pb.ContainerAllocateRequest(devicesIDs=ids)]),
+            timeout=30).container_responses[0]
+        return (dict(car.envs), [(m.container_path, m.host_path, m.read_only)
+                                 for m in car.mounts],
+                dict(car.annotations))
+
+    def stop(self):
+        self.server.stop(grace=1).wait()
+
+
+def pod_env(envs, mounts, image):
+    """A tenant's environment from an Allocate answer: the base
+    environment without any VTPU_*, preload or PYTHONPATH, the answer's
+    env, and every container path in it mapped to the host path the
+    container would see there (through the answer's mounts; a path under
+    no mount lies in the pod's image, ``image``).  The interposer goes in
+    LD_PRELOAD, as the ld.so.preload mount would load it."""
+    host_of_mount = {c: h for c, h, _ in mounts}
+
+    def host(path):
+        for c in sorted(host_of_mount, key=len, reverse=True):
+            if path == c or path.startswith(c + "/"):
+                return host_of_mount[c] + path[len(c):]
+        busy = [h for c, h, _ in mounts if os.path.dirname(c) == path]
+        if busy:    # the busy dir: a mount per card file, no mount of its own
+            return os.path.dirname(busy[0])
+        return image + path
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("VTPU_", "LD_PRELOAD", "PYTHONPATH"))}
+    env.update(envs)
+    for key in ("VTPU_DEVICE_MEMORY_SHARED_CACHE", "VTPU_SHIM_PYTHONPATH",
+                "VTPU_DEVICE_BUSY_DIR"):
+        if key in env:
+            env[key] = host(env[key])
+    env["PYTHONPATH"] = ":".join(host(p) for p in envs["PYTHONPATH"]
+                                 .split(":"))
+    lib = host_of_mount[f"{CONTAINER_LIB}/libvtpu_cuda.so"]
+    with open(host_of_mount["/etc/ld.so.preload"]) as f:
+        check(f.read().split() == [f"{CONTAINER_LIB}/libvtpu_cuda.so"],
+              "ld.so.preload does not name the interposer's mount")
+    env["LD_PRELOAD"] = lib
+    return env
+
+
+def bootstrap_seen(interposed):
+    """What the in-container bootstrap did in this tenant, checked: the
+    shim's sitecustomize ran, the port came from the staged shim, and the
+    quota went to the interposer (``interposed``) or to the Python
+    enforcement, never to both."""
+    import vtpu_torch
+    from vtpu_torch.shim import interposer, pyshim
+
+    shim = os.environ["VTPU_SHIM_PYTHONPATH"]
+    site = getattr(sys.modules.get("sitecustomize"), "__file__", None)
+    res = {"sitecustomize": site, "package": vtpu_torch.__file__,
+           "interposer": interposer.loaded(), "layer": pyshim.bootstrap(),
+           "enforcer": pyshim.enforcer() is not None}
+    check(site == os.path.join(shim, "sitecustomize.py"),
+          f"the shim's sitecustomize did not run: {res}")
+    check(vtpu_torch.__file__.startswith(shim + "/"),
+          f"the port did not come from the staged shim: {res}")
+    check(res["interposer"] == interposed and res["enforcer"] != interposed
+          and res["layer"] == ("interposer" if interposed else "python"),
+          f"the quota's layer: {res}")
+    return res
+
+
+def pod_child(torch, go, report):
+    """Phase 10, one pod's tenant, started with its grant's env: the
+    bootstrap stood down under the interposer; pod A sees its own
+    PYTHONPATH after the shim's entry; the bench config served through
+    ``entry.serve`` with every attention launch on the sm90 route; its
+    charge written to ``report`` at READY, before the views are read; then
+    served for METERED_S after ``go``."""
+    from vtpu_torch.ops import flash_attention as fa
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.utils.envspec import parse_quantity
+
+    res = bootstrap_seen(interposed=True)
+    shim = os.environ["VTPU_SHIM_PYTHONPATH"]
+    entries = os.environ["PYTHONPATH"].split(":")
+    res["pythonpath"] = entries
+    if len(entries) > 1:          # pod A: its app dir, after the shim
+        app = entries[1]
+        check(sys.path.index(shim) < sys.path.index(app),
+              f"the pod's PYTHONPATH is not after the shim: {sys.path}")
+        import pod_app
+        res["app"] = pod_app.MARK
+    cap = parse_quantity(os.environ["VTPU_DEVICE_HBM_LIMIT_0"])
+    free, total = torch.cuda.mem_get_info()
+    check(total == cap, f"mem_get_info total {total} != cap {cap}")
+    fa.flash_attention.launches = 0
+    fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+    res.update(metered_child(torch, go, report))
+    res["launches_by_route"] = dict(fa.flash_attention.route_launches)
+    check(fa.flash_attention.launches > 0 and fa.flash_attention.launches
+          == res["launches_by_route"]["sm90"],
+          f"attention launches off the sm90 route: {res['launches_by_route']}")
+    res["charged_end"] = interposer.stats()["charged_bytes"]
+    return res
+
+
+def pyshim_child(torch):
+    """Phase 10's tenant under the Python enforcement alone (no
+    interposer): an unmodified script moves the bench config's weights to
+    the card, once admitted, again refused; then a ``torch.compile``d
+    forward runs for COMPILED_S under the grant's share."""
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.models.convert import init_module
+    from vtpu_torch.shim import pyshim
+
+    res = bootstrap_seen(interposed=False)
+    enf = pyshim.enforcer()
+    cfg = tr.TransformerConfig.bench()
+    model = init_module(cfg, torch.Generator().manual_seed(0), "cpu")
+    model.to("cuda")                                 # the first copy
+    torch.cuda.synchronize()
+    res["weights_bytes"] = tr.state_bytes(cfg)
+    res["after_first"] = enf.ledger()["used_bytes"]
+    check(res["after_first"] == res["weights_bytes"],
+          f"the first copy charged {res['after_first']} bytes, the weights "
+          f"are {res['weights_bytes']}")
+    allocated = torch.cuda.memory_allocated()
+    fresh = tr.Transformer(cfg).to_empty(device="cpu")
+    try:
+        fresh.to("cuda")
+        raise Failed("a second copy of the weights was admitted")
+    except MemoryError as e:
+        check("RESOURCE_EXHAUSTED" in str(e), f"wrong refusal: {e}")
+        res["refusal"] = str(e)[:200]
+    check(torch.cuda.memory_allocated() == allocated
+          and enf.ledger()["used_bytes"] == res["after_first"]
+          and next(fresh.parameters()).device.type == "cpu",
+          "the refused copy allocated or charged")
+    del fresh
+    model.cfg = dataclasses.replace(cfg, use_flash=False)
+    forward = torch.compile(model)
+    tokens = torch.zeros(TENANT_SHAPE, dtype=torch.int32).to("cuda")
+    with torch.inference_mode():
+        t0 = time.monotonic()
+        forward(tokens)                  # compiles: ungated, unbooked
+        res["compile_s"] = time.monotonic() - t0
+        waits0, busy0 = enf.gate_waits(), enf.ledger()["proc_busy_us"]
+        steps, t0 = 0, time.monotonic()
+        while time.monotonic() - t0 < COMPILED_S:
+            logits = forward(tokens)
+            steps += 1
+        wall = time.monotonic() - t0
+    check(logits.shape == (*TENANT_SHAPE, cfg.vocab)
+          and torch.isfinite(logits).all().item(), "bad compiled logits")
+    res.update(steps_per_s=steps / wall, gate_waits=enf.gate_waits() - waits0,
+               booked_us=enf.ledger()["proc_busy_us"] - busy0,
+               core_pct=enf.spec.core_limit_pct)
+    check(res["booked_us"] > 0, "the compiled forward booked no time")
+    return res
+
+
+def write_checkpoint(path, pb, pod_uid, request, using):
+    """The kubelet's checkpoint with one pod's Allocate answer, annotated
+    as the legacy controller annotates it."""
+    import base64
+
+    car = pb.ContainerAllocateResponse()
+    car.annotations["4paradigm.com/vtpu-request"] = ",".join(request)
+    car.annotations["4paradigm.com/vtpu-using"] = ",".join(using)
+    with open(path, "w") as f:
+        json.dump({"Data": {"PodDeviceEntries": [{
+            "PodUID": pod_uid, "ContainerName": "main",
+            "ResourceName": "4paradigm.com/vtpu", "DeviceIDs": request,
+            "AllocResp": base64.b64encode(car.SerializeToString()).decode(),
+        }], "RegisteredDevices": {}}, "Checksum": 0}, f)
+
+
+def region_used(path):
+    from vtpu_torch.shim.core import SharedRegion
+
+    with SharedRegion(path) as reg:
+        reg.active_procs()   # sweeps the slots of exited processes
+        return int(reg.device_stats(0).used_bytes)
+
+
+def phase_pods(torch, tmp):
+    from vtpu_torch.plugin.config import parse_args
+    from vtpu_torch.plugin.grant import stage_shim, staged_files
+    from vtpu_torch.plugin.main import Daemon
+    from vtpu_torch.proto import pb
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.utils.envspec import parse_quantity
+
+    host = os.path.join(tmp, "pods-host")
+    plugins = os.path.join(tmp, "pods-kubelet")
+    os.makedirs(plugins)
+    staged_files(host, interposer.library_path())
+    t0 = time.monotonic()
+    staged = stage_shim(host)
+    say(f"pods: shim staged in {time.monotonic() - t0:.2f} s: "
+        + json.dumps(staged))
+    lists = []
+
+    def lister(node):
+        lists.append(node)
+        return PODS + [LIVE_POD]
+
+    def daemon(*flags):
+        cfg = parse_args(["--discovery", "nvml", "--device-split-count", "2",
+                          "--monitor-mode", "true", "--node-name", "chip",
+                          "--device-plugin-path", plugins + "/",
+                          "--host-lib-dir", host, *flags])
+        d = Daemon(cfg, pod_lister=lister)
+        check(d.start_plugins(), "the daemon did not start its plugin")
+        return d
+
+    # 1. The daemon and two Allocates from the kubelet.
+    kubelet = FakeKubelet(plugins)
+    d = daemon()
+    try:
+        reg, stub, ch = kubelet.plugin()
+        check(reg.options.get_preferred_allocation_available,
+              "monitor mode alone advertises preferred allocation")
+        ids = [dev.ID for dev in next(stub.ListAndWatch(pb.Empty()))
+               .devices]
+        check(len(ids) == 2, f"the card split in two: {ids}")
+        answers = [kubelet.allocate(stub, [i]) for i in ids]
+        ch.close()
+    finally:
+        d.stop_plugins()
+    images, envs = [], []
+    for (genv, mounts, ann), pod in zip(answers, PODS):
+        say("pods: grant of " + pod["metadata"]["name"] + ": " + json.dumps(
+            {"envs": genv, "mounts": mounts}))
+        name = f"default_{pod['metadata']['name']}_main_" \
+               f"{pod['metadata']['uid'][:8]}"
+        region = f"{CONTAINER_LIB}/shared/{name}/vtpushr.cache"
+        check(genv["VTPU_DEVICE_MEMORY_SHARED_CACHE"] == region,
+              f"{name}: region {genv['VTPU_DEVICE_MEMORY_SHARED_CACHE']}")
+        check((os.path.dirname(region), f"{host}/shared/{name}", False)
+              in mounts and sum("/shared" in c for c, _, _ in mounts) == 1,
+              f"{name}: its own shared dir, and no other, mounted")
+        check({f"{CONTAINER_LIB}/shim", f"{CONTAINER_LIB}/libvtpucore.so",
+               f"{CONTAINER_LIB}/vtpu-smi", "/etc/ld.so.preload"}
+              <= {c for c, _, _ in mounts} and not ann,
+              f"{name}: the bootstrap's mounts")
+        image = os.path.join(tmp, f"image-{pod['metadata']['name']}")
+        app = image + APP_DIR
+        os.makedirs(app)
+        with open(os.path.join(app, "pod_app.py"), "w") as f:
+            f.write(f"MARK = {pod['metadata']['name']!r}\n")
+        images.append(image)
+        envs.append(pod_env(genv, mounts, image))
+    check(answers[0][0]["PYTHONPATH"] == f"{CONTAINER_LIB}/shim:{APP_DIR}"
+          and answers[0][0]["VTPU_PYTHONPATH_MERGED"] == "1"
+          and answers[1][0]["PYTHONPATH"] == f"{CONTAINER_LIB}/shim"
+          and "VTPU_PYTHONPATH_MERGED" not in answers[1][0],
+          "PYTHONPATH merged for pod A only")
+    regions = [e["VTPU_DEVICE_MEMORY_SHARED_CACHE"] for e in envs]
+    check(len(set(regions)) == 2 and all(
+        r.startswith(f"{host}/shared/") for r in regions),
+        f"two regions under the host's shared/: {regions}")
+
+    # 2-3. Both pods' tenants at once; their views while they hold the
+    # card (served, idle until released).
+    reports = [os.path.join(tmp, f"pod{i}.report") for i in range(2)]
+    views = {}
+
+    def read_views():
+        smi = staged["vtpu-smi"]
+        for i, env in enumerate(envs):
+            r = subprocess.run([sys.executable, smi, "--json"], env=env,
+                               capture_output=True, text=True, timeout=120,
+                               cwd=tmp)
+            check(r.returncode == 0, f"vtpu-smi failed: {r.stderr[-2000:]}")
+            with open(reports[i]) as f:
+                charged = json.load(f)["charged_bytes"]
+            views[i] = {"smi": json.loads(r.stdout), "charged": charged,
+                        "host_used": region_used(regions[i])}
+
+    rows = run_released(envs, "pod", tmp, "pods", on_ready=read_views,
+                        args=[[r] for r in reports])
+    for i, (row, view) in enumerate(zip(rows, views.values())):
+        cap = parse_quantity(answers[i][0]["VTPU_DEVICE_HBM_LIMIT_0"])
+        smi = view["smi"]
+        say(f"pods: pod {'AB'[i]} view: " + json.dumps(view))
+        say(f"pods: pod {'AB'[i]} tenant: " + json.dumps(row))
+        check(smi["grant"] and smi["devices"][0]["chip"]
+              == answers[i][0]["VTPU_DEVICE_MAP"].split(":", 1)[1]
+              and smi["region"][0]["limit"] == cap,
+              f"pod {i}: vtpu-smi's grant and cap {smi}")
+        # Its own charge exactly: the other pod's bytes would show as more.
+        check(smi["region"][0]["used"] == view["charged"]
+              == view["host_used"] > 0,
+              f"pod {i}: the view's ledger is not its interposer's charge")
+        check(smi["cards"][0]["live"] == 2,
+              f"pod {i}: the card's busy file holds {smi['cards']}")
+    check(rows[0]["app"] == "pod-a" and "app" not in rows[1],
+          "pod A's PYTHONPATH")
+    for i, r in enumerate(regions):
+        used = region_used(r)
+        check(used == 0, f"pod {i}: region holds {used} bytes after exit")
+    rates = ", ".join(f"{r['steps_per_s']:.2f}" for r in rows)
+    charges = [v["charged"] for v in views.values()]
+    say(f"pods: two monitor-mode pods, regions {', '.join(regions)}; views "
+        f"= interposer charges {charges}; bench {rates} steps/s; ledgers 0 "
+        "after exit")
+
+    # 4. The Python enforcement, without the interposer.
+    py = {}
+    for pct in ("50", "100"):
+        env = {k: v for k, v in envs[0].items() if k != "LD_PRELOAD"}
+        env.update(VTPU_DEVICE_HBM_LIMIT_0=PY_CAP, VTPU_DEVICE_CORE_LIMIT=pct,
+                   VTPU_DEVICE_MEMORY_SHARED_CACHE=os.path.join(
+                       os.path.dirname(regions[0]), f"python{pct}.cache"))
+        py[pct] = child(["pyshim"], env, timeout=900)
+        say(f"pods: python enforcement at {pct}%: " + json.dumps(py[pct]))
+        used = region_used(env["VTPU_DEVICE_MEMORY_SHARED_CACHE"])
+        check(used == 0, f"python enforcement: {used} bytes after exit")
+    check(py["50"]["gate_waits"] > 0, "the 50% share never held the "
+          "compiled forward")
+    say(f"pods: compiled bench forward b={TENANT_SHAPE[0]} "
+        f"s={TENANT_SHAPE[1]}: {py['50']['steps_per_s']:.2f} steps/s at 50% "
+        f"FORCE, {py['100']['steps_per_s']:.2f} at 100% "
+        f"({py['50']['steps_per_s'] / py['100']['steps_per_s']:.3f}); "
+        f"compile {py['50']['compile_s']:.1f} s, "
+        f"{py['100']['compile_s']:.1f} s")
+
+    # 5. The legacy controller: vdevice 0 is the live pod's in the
+    # kubelet's checkpoint (asked for as 1), so the stale ID 0 is re-picked.
+    write_checkpoint(os.path.join(plugins, "kubelet_internal_checkpoint"), pb,
+                     LIVE_POD["metadata"]["uid"], [ids[1]], [ids[0]])
+    d = daemon("--enable-legacy-preferred", "true")
+    try:
+        reg, stub, ch = kubelet.plugin()
+        genv, mounts, ann = kubelet.allocate(stub, [ids[0]])
+        ch.close()
+    finally:
+        d.stop_plugins()
+        kubelet.stop()
+    say("pods: legacy Allocate of the stale " + ids[0] + ": " + json.dumps(
+        {"annotations": ann, "VTPU_DEVICE_MAP": genv["VTPU_DEVICE_MAP"]}))
+    check(not reg.options.get_preferred_allocation_available,
+          "the legacy controller advertises preferred allocation")
+    check(ann == {"4paradigm.com/vtpu-request": ids[0],
+                  "4paradigm.com/vtpu-using": ids[1]},
+          f"the controller did not re-pick vdevice 1: {ann}")
+    check(genv["VTPU_DEVICE_HBM_LIMIT_0"]
+          == answers[1][0]["VTPU_DEVICE_HBM_LIMIT_0"],
+          "the re-picked grant's cap")
+    check(all(node == "chip" for node in lists), f"pod lists for {lists}")
+    return {"views": views, "tenants": rows, "python": py}
+
+
 def child_main(args):
     """``--child serve`` (phase 6), ``--child metered <go file>`` (phase
     7), ``--child granted <go file>`` (phase 8), ``--child train`` or
-    ``--child train_parity`` (phase 9): one tenant; prints its RESULT
-    line."""
+    ``--child train_parity`` (phase 9), ``--child pod <go file> <report
+    file>`` or ``--child pyshim`` (phase 10): one tenant; prints its
+    RESULT line."""
     import torch
 
-    sys.path.insert(0, REPO)
+    if args[0] not in ("pod", "pyshim"):   # those take the pod's shim
+        sys.path.insert(0, REPO)
     try:
-        if args[0] == "serve":
+        if args[0] == "pod":
+            res = pod_child(torch, args[1], args[2])
+        elif args[0] == "pyshim":
+            res = pyshim_child(torch)
+        elif args[0] == "serve":
             res = interposed_serve_child(torch)
         elif args[0] == "granted":
             res = granted_child(torch, args[1])
@@ -1387,6 +1837,7 @@ def main():
             phase_metered(tmp)
             phase_plugin(torch, tmp)
             phase_train(torch, tmp)
+            phase_pods(torch, tmp)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -5,6 +5,8 @@ tests/kubelet_sim.py, its answers compared with vtpu's plugin on the
 matching fake inventory through the substitution table below.  All
 comparisons are exact."""
 
+import base64
+import json
 import os
 import re
 import shutil
@@ -20,6 +22,7 @@ from vtpu.discovery.types import TpuChip, TpuCore
 from vtpu.plugin import config as jconfig
 from vtpu.plugin import split as jsplit
 from vtpu.plugin import vdevice as jvd
+from vtpu.plugin.controller import VDeviceController as JController
 from vtpu.plugin.server import VtpuDevicePlugin as JPlugin
 from vtpu.proto import pb
 from vtpu_torch.discovery.fake import FakeChipBackend
@@ -27,8 +30,13 @@ from vtpu_torch.discovery.types import GpuChip, MigInstance
 from vtpu_torch.plugin import config as tconfig
 from vtpu_torch.plugin import split as tsplit
 from vtpu_torch.plugin import vdevice as tvd
+from vtpu_torch.plugin.controller import VDeviceController
 from vtpu_torch.plugin.grant import (BUSY_FILE_BYTES, grant,
-                                     stage_busy_files, staged_files)
+                                     stage_busy_files, stage_shim,
+                                     staged_files)
+from vtpu_torch.plugin.main import Daemon
+from vtpu_torch.plugin.server import VtpuDevicePlugin as TPlugin
+from vtpu_torch.proto import pb as tpb
 from vtpu_torch.utils import envspec
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -142,19 +150,33 @@ def test_flags_match_vtpu():
     assert not t["enable_runtime"] and not t["enable_metricsd"]
 
 
-@pytest.mark.parametrize("flag", ["--enable-runtime", "--enable-metricsd",
-                                  "--enable-legacy-preferred",
-                                  "--monitor-mode"])
+FLAG_ENV = {"--enable-runtime": "VTPU_ENABLE_RUNTIME",
+            "--enable-metricsd": "VTPU_METRICSD_ENABLE",
+            "--enable-legacy-preferred": "ENABLE_LEGACY_PREFERRED",
+            "--monitor-mode": "VTPU_MONITOR_MODE"}
+
+
+@pytest.mark.parametrize("flag", ["--enable-runtime", "--enable-metricsd"])
 def test_unported_flags_refuse(flag, monkeypatch):
     with pytest.raises(SystemExit, match="ROADMAP"):
         tconfig.parse_args([flag, "true"])
-    env = {"--enable-runtime": "VTPU_ENABLE_RUNTIME",
-           "--enable-metricsd": "VTPU_METRICSD_ENABLE",
-           "--enable-legacy-preferred": "ENABLE_LEGACY_PREFERRED",
-           "--monitor-mode": "VTPU_MONITOR_MODE"}[flag]
-    monkeypatch.setenv(env, "true")
+    monkeypatch.setenv(FLAG_ENV[flag], "true")
     with pytest.raises(SystemExit, match=flag):
         tconfig.parse_args([])
+
+
+@pytest.mark.parametrize("flag", ["--enable-legacy-preferred",
+                                  "--monitor-mode"])
+def test_lifted_flags_accepted(flag, monkeypatch):
+    """Monitor mode and the legacy controller run, from the flag or its
+    env alias, as in vtpu (which also turns both off by default)."""
+    attr = flag[2:].replace("-", "_")
+    assert getattr(tconfig.parse_args([flag, "true"]), attr) is True
+    assert getattr(jconfig.parse_args([flag, "true", "--node-name", "n"]),
+                   attr) is True
+    monkeypatch.setenv(FLAG_ENV[flag], "true")
+    assert getattr(tconfig.parse_args([]), attr) is True
+    assert tconfig.Config(**{attr: True}).validate() == []
 
 
 def test_flags_validate():
@@ -342,33 +364,29 @@ def test_mig_grants_share_no_busy_file(tmp_path):
     assert busy_mounts(g) == [] and envspec.ENV_DEVICE_BUSY_DIR not in g.envs
 
 
-# -- the daemon, driven by the kubelet simulator, against vtpu's ----------------
+# -- the daemon, driven by the kubelet simulator, against vtpu's --------------
 
 # vtpu's Allocate env -> the port's: a new name, None (not emitted until
 # its subsystem is ported, or no H100 default), or the same name.
 ENV_SUBSTITUTIONS = {
     "VTPU_VISIBLE_DEVICES": "NVIDIA_VISIBLE_DEVICES",
     "TPU_LIBRARY_PATH": None,            # the ld.so.preload mount instead
-    "VTPU_SHIM_PYTHONPATH": None,        # the shim
-    "PYTHONPATH": None,
     "VTPU_METRICSD_PORT": None,          # metricsd
     "TPU_RUNTIME_METRICS_PORTS": None,
     "VTPU_METRICSD_UPSTREAM": None,
 }
-# vtpu's mounts, by container path -> the port's container path or None.
+# vtpu's mounts, by container path -> the port's container path or None;
+# the others keep theirs.
 MOUNT_SUBSTITUTIONS = {
     "/usr/local/vtpu/libvtpu_pjrt.so": None,      # the ld.so.preload mount
-    "/usr/local/vtpu/libvtpucore.so": None,       # compiled into the lib
-    "/usr/local/vtpu/shim": None,
-    "/usr/local/vtpu/vtpu-smi": None,
     "/usr/local/vtpu/libvtpu_preload.so": "/usr/local/vtpu/libvtpu_cuda.so",
-    "/etc/ld.so.preload": "/etc/ld.so.preload",
 }
-HOST_NAMES = {"libvtpu_preload.so": "libvtpu_cuda.so",
-              "ld.so.preload": "ld.so.preload"}
+# vtpu's staged files -> the port's, relative to the host lib dir.
+HOST_NAMES = {"libvtpu_preload.so": "libvtpu_cuda.so"}
 # Added by the port: the per-card busy files' directory.
 PORT_ONLY_ENV = {"VTPU_DEVICE_BUSY_DIR": "/usr/local/vtpu/busy"}
 REGION = re.compile(r"/tmp/vtpu_[0-9a-f]{12}\.cache")
+SHARED = "/usr/local/vtpu/shared"
 
 
 def to_port(text):
@@ -376,6 +394,9 @@ def to_port(text):
 
 
 def expected_port_answer(jresp, jhost, thost, floor):
+    """vtpu's answer through the substitution tables.  Where vtpu mounts
+    the whole shared/ (monitor mode), the port mounts the pod's own
+    directory alone, at its own path."""
     envs = {}
     for k, v in jresp.envs.items():
         if k == envspec.ENV_MIN_EXEC_COST and floor is None:
@@ -386,12 +407,18 @@ def expected_port_answer(jresp, jhost, thost, floor):
     envs.update(PORT_ONLY_ENV)
     mounts = []
     for m in jresp.mounts:
-        cpath = MOUNT_SUBSTITUTIONS[m.container_path]
-        if cpath is not None:
-            host = os.path.join(thost, HOST_NAMES[os.path.basename(
-                m.host_path)])
-            assert os.path.dirname(m.host_path) == jhost
-            mounts.append((cpath, host, m.read_only))
+        cpath = MOUNT_SUBSTITUTIONS.get(m.container_path, m.container_path)
+        if cpath is None:
+            continue
+        rel = os.path.relpath(m.host_path, jhost)
+        assert not rel.startswith(".."), m.host_path
+        if cpath == SHARED:
+            own = os.path.dirname(envs[envspec.ENV_SHARED_CACHE])
+            if os.path.dirname(own) != SHARED:
+                continue      # no pod matched: a private region
+            cpath, rel = own, os.path.relpath(own, "/usr/local/vtpu")
+        mounts.append((cpath, os.path.join(thost, HOST_NAMES.get(rel, rel)),
+                       m.read_only))
     # Each granted card's busy file, the daemon's, mounted on its own.
     cards = [e.split(":", 1)[1] for e in envs["VTPU_DEVICE_MAP"].split()]
     for u in dict.fromkeys(cards):
@@ -416,6 +443,7 @@ def daemons(tmp_path, request):
     tdir.mkdir()
     jdir.mkdir()
     thost = stage(tmp_path)
+    stage_shim(thost)
     shutil.rmtree(os.path.join(thost, "busy"))   # the daemon makes them
     jhost = str(tmp_path / "jhost")
     os.makedirs(jhost)
@@ -567,3 +595,293 @@ def test_daemon_health_and_shutdown(tmp_path):
             proc.kill()
             proc.wait()
         sim.stop()
+
+
+# -- monitor mode and the legacy controller, against vtpu's -------------------
+
+def pending_pod(name, uid, n, env=None):
+    """vtpu's tests/test_plugin_server.py pending pod."""
+    ctr = {"name": "main",
+           "resources": {"limits": {"4paradigm.com/vtpu": str(n)}}}
+    if env is not None:
+        ctr["env"] = env
+    return {"metadata": {"namespace": "default", "name": name, "uid": uid},
+            "status": {"phase": "Pending"}, "spec": {"containers": [ctr]}}
+
+
+def plugin_pair(tmp_path, split, chips, listers, controllers=(None, None)):
+    """vtpu's plugin and the port's (not serving: Allocate is called
+    directly) on matching fake inventories, each with its own host dir
+    and pod lister; the port's host has its interposer, busy files and
+    shim staged, vtpu's the files its preload mounts need."""
+    thost = stage(tmp_path)
+    stage_shim(thost)
+    jhost = str(tmp_path / "jhost")
+    os.makedirs(jhost)
+    for name in ("libvtpu_preload.so", "ld.so.preload"):
+        open(os.path.join(jhost, name), "w").close()
+    common = ["--discovery", "fake", "--device-split-count", str(split),
+              "--monitor-mode", "true", "--node-name", "node1"]
+    jcfg = jconfig.parse_args(common + [
+        "--device-plugin-path", f"{tmp_path}/jkubelet/", "--host-lib-dir",
+        jhost, "--runtime-socket", str(tmp_path / "no-broker.sock")])
+    tcfg = tconfig.parse_args(common + [
+        "--device-plugin-path", f"{tmp_path}/tkubelet/", "--host-lib-dir",
+        thost])
+    tback = FakeChipBackend(chips)
+    jback = JFake(chips, "v5e", hbm_bytes=tback.chips()[0].hbm_bytes)
+    jplug = JPlugin(jsplit.build_plugin_specs(jcfg, jback)[0], jcfg,
+                    topology=jback.topology(), controller=controllers[0],
+                    pod_lister=listers[0])
+    tplug = TPlugin(tsplit.build_plugin_specs(tcfg, tback)[0], tcfg,
+                    topology=tback.topology(), controller=controllers[1],
+                    pod_lister=listers[1])
+    return jplug, tplug, jhost, thost
+
+
+def allocate_both(jplug, tplug, jhost, thost, i):
+    """Allocate vdevice ``i`` of each; the port's answer and vtpu's
+    through the substitutions."""
+    jresp = jplug.Allocate(pb.AllocateRequest(container_requests=[
+        pb.ContainerAllocateRequest(devicesIDs=[jplug.vdevices[i].id])]),
+        None).container_responses[0]
+    tresp = tplug.Allocate(tpb.AllocateRequest(container_requests=[
+        tpb.ContainerAllocateRequest(devicesIDs=[tplug.vdevices[i].id])]),
+        None).container_responses[0]
+    got = answer(tresp)
+    want = expected_port_answer(jresp, jhost, thost, None)
+    for envs, _ in (got, want):   # private regions: a random name each
+        if REGION.fullmatch(envs[envspec.ENV_SHARED_CACHE]):
+            envs[envspec.ENV_SHARED_CACHE] = "/tmp/<private>"
+    return got, want, dict(tresp.annotations), dict(jresp.annotations)
+
+
+@pytest.fixture()
+def no_floor(monkeypatch):
+    for k in (envspec.ENV_MIN_EXEC_COST, envspec.ENV_UTILIZATION_POLICY):
+        monkeypatch.delenv(k, raising=False)
+
+
+def test_monitor_mode_distinct_shared_dirs(tmp_path, no_floor):
+    """Two same-sized pending pods get two regions, each in its own
+    directory made on the host, and each pod mounts only its own
+    (vtpu tests/test_plugin_server.py:371)."""
+    pods = [pending_pod("job-a", "uid-aaaa0000", 1),
+            pending_pod("job-b", "uid-bbbb0000", 1)]
+    jplug, tplug, jhost, thost = plugin_pair(
+        tmp_path, 2, 2, (lambda node: pods, lambda node: pods))
+    regions = []
+    for i in (0, 1):
+        got, want, _, _ = allocate_both(jplug, tplug, jhost, thost, i)
+        assert got == want
+        region = got[0][envspec.ENV_SHARED_CACHE]
+        regions.append(region)
+        name = os.path.basename(os.path.dirname(region))
+        assert os.path.isdir(os.path.join(thost, "shared", name))
+        assert [m for m in got[1] if "/shared" in m[0]] == [
+            (os.path.dirname(region), f"{thost}/shared/{name}", False)]
+    assert regions == [
+        "/usr/local/vtpu/shared/default_job-a_main_uid-aaaa/vtpushr.cache",
+        "/usr/local/vtpu/shared/default_job-b_main_uid-bbbb/vtpushr.cache"]
+
+
+def test_monitor_mode_pythonpath_merged_not_clobbered(tmp_path, no_floor):
+    """A pod-declared PYTHONPATH goes behind the shim's entry, with the
+    merge flag; a pod without one gets the shim's entry alone (vtpu
+    tests/test_plugin_server.py:414)."""
+    pod = pending_pod("job-pp", "uid-pp000000", 1, env=[
+        {"name": "PYTHONPATH", "value": "/app/lib:/app/vendor"},
+        {"name": "OTHER", "value": "x"},
+        {"name": "FROMREF", "valueFrom": {"fieldRef": {}}}])
+    pods = [pod, pending_pod("job-plain", "uid-pl000000", 1)]
+    jplug, tplug, jhost, thost = plugin_pair(
+        tmp_path, 2, 2, (lambda node: pods, lambda node: pods))
+    got = {}
+    for i in (0, 1):
+        (envs, mounts), want, _, _ = allocate_both(jplug, tplug, jhost,
+                                                   thost, i)
+        assert (envs, mounts) == want
+        got["merged" if "job-pp" in envs[envspec.ENV_SHARED_CACHE]
+            else "plain"] = envs
+    shim = "/usr/local/vtpu/shim"
+    assert got["merged"]["PYTHONPATH"] == f"{shim}:/app/lib:/app/vendor"
+    assert got["merged"]["VTPU_SHIM_PYTHONPATH"] == shim
+    assert got["merged"]["VTPU_PYTHONPATH_MERGED"] == "1"
+    assert got["plain"]["PYTHONPATH"] == shim
+    assert "VTPU_PYTHONPATH_MERGED" not in got["plain"]
+
+
+def test_monitor_mode_pod_list_cached_across_allocates(tmp_path, no_floor):
+    """Ten Allocates share the TTL-cached pod list (at most two upstream
+    LISTs) and resolve ten pods to ten regions, as vtpu's (vtpu
+    tests/test_plugin_server.py:468)."""
+    pods = [pending_pod(f"job-{i}", f"uid-{i:04d}0000", 1)
+            for i in range(10)]
+    calls = ([], [])
+    listers = tuple(lambda node, c=c: c.append(node) or pods for c in calls)
+    jplug, tplug, jhost, thost = plugin_pair(tmp_path, 12, 1, listers)
+    regions = []
+    for i in range(10):
+        got, want, _, _ = allocate_both(jplug, tplug, jhost, thost, i)
+        assert got == want
+        regions.append(got[0][envspec.ENV_SHARED_CACHE])
+    assert len(set(regions)) == 10
+    assert len(calls[1]) == len(calls[0]) <= 2
+
+
+def test_monitor_mode_fresh_retry_on_cache_miss(tmp_path, no_floor):
+    """A pod created inside the cache's TTL is still matched: with every
+    cached candidate claimed, one fresh LIST (vtpu
+    tests/test_plugin_server.py:512); with no match at all the region is
+    private and nothing of shared/ is mounted."""
+    pods = [pending_pod("early", "uid-ea000000", 1)]
+    calls = ([], [])
+    listers = tuple(lambda node, c=c: c.append(node) or list(pods)
+                    for c in calls)
+    jplug, tplug, jhost, thost = plugin_pair(tmp_path, 4, 1, listers)
+    got, want, _, _ = allocate_both(jplug, tplug, jhost, thost, 0)
+    assert got == want and "early" in got[0][envspec.ENV_SHARED_CACHE]
+    pods.append(pending_pod("late", "uid-la000000", 1))
+    got, want, _, _ = allocate_both(jplug, tplug, jhost, thost, 1)
+    assert got == want and "late" in got[0][envspec.ENV_SHARED_CACHE]
+    assert len(calls[0]) == len(calls[1]) == 2
+    pods.clear()
+    got, want, _, _ = allocate_both(jplug, tplug, jhost, thost, 2)
+    assert got == want
+    assert got[0][envspec.ENV_SHARED_CACHE] == "/tmp/<private>"
+    assert not [m for m in got[1] if "/shared" in m[0]]
+
+
+def write_checkpoint(path, pb_mod, pod_uid, request, using):
+    car = pb_mod.ContainerAllocateResponse()
+    car.annotations["4paradigm.com/vtpu-request"] = ",".join(request)
+    car.annotations["4paradigm.com/vtpu-using"] = ",".join(using)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"Data": {"PodDeviceEntries": [{
+            "PodUID": pod_uid, "ResourceName": "4paradigm.com/vtpu",
+            "DeviceIDs": request,
+            "AllocResp": base64.b64encode(car.SerializeToString()).decode(),
+        }]}, "Checksum": 0}, f)
+
+
+def test_legacy_allocate_re_picks_with_annotations(tmp_path, no_floor):
+    """vtpu tests/test_controller.py:92 on one card split in two: the
+    kubelet's checkpoint shows vdevice 0 granted to a live pod (for its
+    request of 1), and an Allocate of the stale ID 0 is given vdevice 1,
+    by both plugins, with the same env and mounts.  The port's request
+    annotation is the kubelet's ID, where vtpu writes the granted one
+    under both annotations."""
+    pods = [{"metadata": {"uid": "live-pod"}, "status": {"phase": "Running"}}]
+    ctls = (JController(jconfig.Config(
+                device_plugin_path=f"{tmp_path}/jkubelet/", node_name="n"),
+                pod_lister=lambda node: pods),
+            VDeviceController(tconfig.Config(
+                device_plugin_path=f"{tmp_path}/tkubelet/", node_name="n"),
+                pod_lister=lambda node: pods))
+    jplug, tplug, jhost, thost = plugin_pair(tmp_path, 2, 1, (None, None),
+                                             ctls)
+    for ctl, plug, mod in zip(ctls, (jplug, tplug), (pb, tpb)):
+        write_checkpoint(ctl.checkpoint_path, mod, "live-pod",
+                         [plug.vdevices[1].id], [plug.vdevices[0].id])
+    got, want, tann, jann = allocate_both(jplug, tplug, jhost, thost, 0)
+    assert got == want
+    assert jann == {"4paradigm.com/vtpu-request": jplug.vdevices[1].id,
+                    "4paradigm.com/vtpu-using": jplug.vdevices[1].id}
+    assert tann == {"4paradigm.com/vtpu-request": tplug.vdevices[0].id,
+                    "4paradigm.com/vtpu-using": tplug.vdevices[1].id}
+    assert tplug.GetDevicePluginOptions(None, None) == \
+        jplug.GetDevicePluginOptions(None, None)
+    assert not tplug.GetDevicePluginOptions(
+        None, None).get_preferred_allocation_available
+
+
+def test_daemon_monitor_and_legacy_over_grpc(tmp_path, no_floor):
+    """The daemon with both modes on, driven over its socket: it registers
+    without preferred allocation, the controller re-picks the stale ID
+    from the checkpoint, and the matched pod's region, PYTHONPATH and own
+    shared mount come back with the annotations.  vtpu_torch.plugin.main
+    builds the controller and the shared pod lister."""
+    host = stage(tmp_path)
+    stage_shim(host)
+    pods = [pending_pod("job-a", "uid-aaaa0000", 1,
+                        env=[{"name": "PYTHONPATH", "value": "/app/lib"}]),
+            {"metadata": {"uid": "live-pod"},
+             "status": {"phase": "Running"}}]
+    lists = []
+    cfg = tconfig.parse_args([
+        "--discovery", "fake", "--device-split-count", "2",
+        "--monitor-mode", "true", "--enable-legacy-preferred", "true",
+        "--node-name", "node1", "--device-plugin-path", f"{tmp_path}/",
+        "--host-lib-dir", host])
+    # The live pod asked the kubelet for vdevice 1 and was given 0, so
+    # the kubelet takes 0 for free.
+    write_checkpoint(str(tmp_path / "kubelet_internal_checkpoint"), tpb,
+                     "live-pod", ["GPU-fake-h100-00-vtpu-1"],
+                     ["GPU-fake-h100-00-vtpu-0"])
+    sim = KubeletSim(str(tmp_path)).start()
+    daemon = Daemon(cfg, FakeChipBackend(1), pod_lister=lambda node, **kw:
+                    lists.append((node, kw)) or pods)
+    try:
+        assert daemon.start_plugins()
+        plug, = daemon.plugins
+        assert plug.controller is not None
+        assert plug.pod_lister is daemon.pod_lister
+        assert plug.controller.pod_lister is daemon.pod_lister
+        reg = sim.wait_registration(timeout=10)
+        assert not reg.options.get_preferred_allocation_available
+        stub, ch = sim.plugin_stub(reg.endpoint)
+        try:
+            car = stub.Allocate(pb.AllocateRequest(container_requests=[
+                pb.ContainerAllocateRequest(
+                    devicesIDs=["GPU-fake-h100-00-vtpu-0"])])
+            ).container_responses[0]
+        finally:
+            ch.close()
+    finally:
+        daemon.stop_plugins()
+        sim.stop()
+    envs, mounts = answer(car)
+    name = "default_job-a_main_uid-aaaa"
+    assert envs["VTPU_DEVICE_MEMORY_SHARED_CACHE"] == \
+        f"/usr/local/vtpu/shared/{name}/vtpushr.cache"
+    assert envs["PYTHONPATH"] == "/usr/local/vtpu/shim:/app/lib"
+    assert envs["VTPU_PYTHONPATH_MERGED"] == "1"
+    assert (f"/usr/local/vtpu/shared/{name}", f"{host}/shared/{name}",
+            False) in mounts
+    assert [m[0] for m in mounts[:3]] == [
+        "/usr/local/vtpu/libvtpucore.so", "/usr/local/vtpu/shim",
+        "/usr/local/vtpu/vtpu-smi"]
+    assert dict(car.annotations) == {
+        "4paradigm.com/vtpu-request": "GPU-fake-h100-00-vtpu-0",
+        "4paradigm.com/vtpu-using": "GPU-fake-h100-00-vtpu-1"}
+    assert lists and all(node == "node1" for node, _ in lists)
+
+
+def test_stage_shim(tmp_path):
+    """The staged shim: the two scripts and a real package copy without
+    native tests, mocks or build output, and the region library beside
+    it; staging again replaces it whole.  Without it, no PYTHONPATH and
+    none of its mounts."""
+    host = str(tmp_path / "host")
+    got = stage_shim(host)
+    shim = got["shim"]
+    assert sorted(os.listdir(shim)) == ["sitecustomize.py",
+                                        "vtpu_smi_lite.py", "vtpu_torch"]
+    pkg = os.path.join(shim, "vtpu_torch")
+    assert not os.path.islink(pkg)
+    staged = {os.path.relpath(os.path.join(r, f), pkg)
+              for r, _, fs in os.walk(pkg) for f in fs}
+    assert {"__init__.py", "shim/pyshim.py", "ops/_build.py",
+            "native/interposer.cc", "ops/csrc/flash_attention_sm90.cu"} \
+        <= staged
+    assert not [f for f in staged if f.endswith("_test.cc")
+                or "mock_cuda" in f or "__pycache__" in f]
+    assert os.path.getsize(got["libvtpucore.so"]) > 0
+    open(os.path.join(shim, "stale"), "w").close()
+    stage_shim(host)
+    assert not os.path.exists(os.path.join(shim, "stale"))
+    assert sorted(os.listdir(host)) == ["libvtpucore.so", "shim"]
+    cfg = tconfig.Config(host_lib_dir=str(tmp_path / "bare"))
+    g = one_grant(cfg, FakeChipBackend(1))
+    assert "PYTHONPATH" not in g.envs and g.mounts == []

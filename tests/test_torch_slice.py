@@ -129,8 +129,11 @@ def test_cuda_without_card_raises():
 
 def test_import_hygiene():
     """Every module of the port, and chip_smoke.py, import with jax and
-    vtpu made unimportable, and leave no vtpu module behind; the port's
-    C++ sources include nothing of the JAX package's native/ tree but the
+    vtpu made unimportable, and leave no vtpu module behind; the
+    in-container bootstrap's two scripts, imported last with no grant in
+    the environment, change nothing: not sys.path, not the import hooks,
+    not torch, and they import no module of their own; the port's C++
+    sources include nothing of the JAX package's native/ tree but the
     region's header."""
     mods = []
     for root, _, files in os.walk(PORT):
@@ -141,6 +144,7 @@ def test_import_hygiene():
                 if parts[-1] == "__init__":
                     parts = parts[:-1]
                 mods.append(".".join(["vtpu_torch"] + parts))
+    boot = ["vtpu_torch.shim.sitecustomize", "vtpu_torch.shim.vtpu_smi_lite"]
     code = f"""
         import importlib, sys
         sys.path.insert(0, {REPO!r})
@@ -158,18 +162,32 @@ def test_import_hygiene():
                 return None
 
         sys.meta_path.insert(0, Block())
+        boot = {sorted(boot)!r}
         for name in {sorted(mods)!r} + ["chip_smoke"]:
+            if name not in boot:
+                importlib.import_module(name)
+        import torch
+        state = lambda: (list(sys.path), list(sys.meta_path),
+                         torch.Tensor.to, torch.Tensor.cuda,
+                         torch.nn.Module.to, torch.compile)
+        before, known = state(), set(sys.modules)
+        for name in boot:
             importlib.import_module(name)
+        assert state() == before, "a bootstrap script changed the process"
+        assert set(sys.modules) - known == set(boot), set(sys.modules) - known
         left = [m for m in sys.modules if banned(m)]
         assert not left, left
         print("clean", len({sorted(mods)!r}))
     """
+    env = {k: v for k, v in os.environ.items() if not k.startswith("VTPU_")}
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
                        capture_output=True, text=True, timeout=120,
-                       cwd=REPO)
+                       cwd=REPO, env=env)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "clean" in r.stdout
-    assert len(mods) >= 13 and "vtpu_torch.shim.interposer" in mods
+    assert len(mods) >= 19 and {
+        "vtpu_torch.shim.interposer", "vtpu_torch.k8s.client",
+        "vtpu_torch.plugin.controller", *boot} <= set(mods)
 
     native = os.path.join(PORT, "native")
     sources = sorted(os.listdir(native))
