@@ -67,6 +67,7 @@ MAP(a::nvmlReturn_t, ::nvmlReturn_t)
 MAP(a::nvmlDevice_st, ::nvmlDevice_st)
 MAP(a::nvmlMemory_t, ::nvmlMemory_t)
 MAP(a::nvmlMemory_v2_t, ::nvmlMemory_v2_t)
+MAP(a::nvmlUtilization_t, ::nvmlUtilization_t)
 
 /* Scalar typedefs: the same type, not just the same size. */
 static_assert(std::is_same<a::cuuint64_t, ::cuuint64_t>::value, "cuuint64_t");
@@ -205,6 +206,9 @@ FIELD(nvmlMemory_v2_t, total)
 FIELD(nvmlMemory_v2_t, reserved)
 FIELD(nvmlMemory_v2_t, free)
 FIELD(nvmlMemory_v2_t, used)
+STRUCT(nvmlUtilization_t)
+FIELD(nvmlUtilization_t, gpu)
+FIELD(nvmlUtilization_t, memory)
 
 /* Every hooked or called function's type, exactly. */
 #define SIG(name)                                                     \
@@ -254,6 +258,7 @@ SIG(nvmlDeviceGetHandleByIndex_v2)
 SIG(nvmlDeviceGetIndex)
 SIG(nvmlDeviceGetMemoryInfo)
 SIG(nvmlDeviceGetMemoryInfo_v2)
+SIG(nvmlDeviceGetUtilizationRates)
 
 /* cuGetProcAddress of CUDA 11.x takes no status argument; the 12 header
  * declares only the _v2 form, so its own arguments are held here. */

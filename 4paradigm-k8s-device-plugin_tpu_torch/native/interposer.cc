@@ -55,7 +55,9 @@
  *            charges fall at segment granularity, not per tensor.
  *   view     cuMemGetInfo_v2 reports (cap - region used, cap) and
  *            cuDeviceTotalMem_v2 the cap; nvmlDeviceGetMemoryInfo[_v2]
- *            the same, which is what nvidia-smi in the container shows.
+ *            the same, which is what nvidia-smi in the container shows;
+ *            nvmlDeviceGetUtilizationRates the pod's own device time over
+ *            a window, as a share of its compute share (memory: 0).
  *   compute  cuLaunchKernel, cuLaunchKernelEx (cuBLAS's GEMMs on Hopper),
  *            cuLaunchCooperativeKernel and cuGraphLaunch, with their _ptsz
  *            variants, pass a gate that blocks while the region's token
@@ -674,6 +676,7 @@ enum HookId {
   H_cuGraphLaunch_ptsz,
   H_nvmlDeviceGetMemoryInfo,
   H_nvmlDeviceGetMemoryInfo_v2,
+  H_nvmlDeviceGetUtilizationRates,
   H_COUNT
 };
 #define REAL(id, type) real<type>(g_hooks[id])
@@ -1246,6 +1249,86 @@ EXPORT nvmlReturn_t nvmlDeviceGetMemoryInfo_v2(nvmlDevice_t device,
     memory->reserved = 0;
     memory->free = f;
     memory->used = t - f;
+  }
+  return r;
+}
+
+/* ---- the utilisation view ----------------------------------------- */
+
+/* nvmlDeviceGetUtilizationRates as the pod may see it: `gpu` is the
+ * share of a window that the region's processes (this pod's) ran on the
+ * device, from the region's busy_us, rescaled by the compute share so
+ * that 100 means all of the share (metricsd's duty rule,
+ * metricsd/server.py virtual_duty_pct), clamped to 100.  `memory`, the
+ * memory controller's busy share, is the whole card's and tells of the
+ * neighbours' load: it reads 0.
+ *
+ * nvidia-smi is a short-lived process with no earlier sample, so the
+ * first call for a device reads busy_us twice kUtilWindowNs apart (1/6 s,
+ * the shortest period NVML's own utilisation is sampled over).  A later
+ * call whose last reading is at least that old measures from it; one that
+ * comes sooner repeats the last answer.  The view only reads the region:
+ * it takes no slot (no enroll). */
+static const uint64_t kUtilWindowNs = 1000000000ull / 6;
+
+struct UtilSample {
+  uint64_t busy_us, t_ns;
+  unsigned int gpu;
+  bool have;
+};
+static std::mutex g_util_mu;
+static UtilSample g_util[VTPU_MAX_DEVICES];
+
+/* The region's busy_us and compute share of `dev`; false when unreadable. */
+static bool busy_reading(int dev, uint64_t* busy_us, int* core_pct) {
+  vtpu_device_stats st;
+  if (vtpu_device_get_stats(g_region, dev, &st) != 0) return false;
+  *busy_us = st.busy_us;
+  *core_pct = st.core_limit_pct > 0 ? st.core_limit_pct : g_q.core_pct;
+  return true;
+}
+
+static unsigned int share_pct(uint64_t busy_us, uint64_t ns, int core_pct) {
+  if (ns == 0) return 0;
+  double pct = (double)busy_us * 1e3 / (double)ns * 100.0;
+  if (core_pct > 0) pct = pct * 100.0 / core_pct;
+  return pct >= 100.0 ? 100u : (unsigned int)(pct + 0.5);
+}
+
+/* This pod's utilisation of region ordinal `dev`, into `*gpu` (the
+ * region is open: STATE_ENFORCING). */
+static bool util_view(int dev, unsigned int* gpu) {
+  std::lock_guard<std::mutex> lk(g_util_mu);
+  UtilSample& s = g_util[dev];
+  uint64_t busy = 0;
+  int pct = 0;
+  if (!s.have) {
+    if (!busy_reading(dev, &busy, &pct)) return false;
+    s = UtilSample{busy, mono_ns(), 0, true};
+    struct timespec w = {0, (long)kUtilWindowNs};
+    while (nanosleep(&w, &w) != 0 && errno == EINTR) {
+    }
+  }
+  uint64_t now = mono_ns();
+  if (now - s.t_ns >= kUtilWindowNs) {
+    if (!busy_reading(dev, &busy, &pct)) return false;
+    s.gpu = share_pct(busy - std::min(busy, s.busy_us), now - s.t_ns, pct);
+    s.busy_us = busy;
+    s.t_ns = now;
+  }
+  *gpu = s.gpu;
+  return true;
+}
+
+EXPORT nvmlReturn_t nvmlDeviceGetUtilizationRates(
+    nvmlDevice_t device, nvmlUtilization_t* utilization) {
+  nvmlReturn_t r = REAL(H_nvmlDeviceGetUtilizationRates,
+                        fn_nvmlDeviceGetUtilizationRates)(device, utilization);
+  unsigned int gpu = 0;
+  if (r == NVML_SUCCESS && utilization && state() == STATE_ENFORCING &&
+      util_view(region_dev(nvml_index(device)), &gpu)) {
+    utilization->gpu = gpu;
+    utilization->memory = 0;
   }
   return r;
 }
@@ -2037,6 +2120,7 @@ Hook g_hooks[H_COUNT] = {
     HOOK(LIB_CUDA, cuGraphLaunch_ptsz),
     HOOK(LIB_NVML, nvmlDeviceGetMemoryInfo),
     HOOK(LIB_NVML, nvmlDeviceGetMemoryInfo_v2),
+    HOOK(LIB_NVML, nvmlDeviceGetUtilizationRates),
 };
 const size_t g_nhooks = H_COUNT;
 

@@ -31,6 +31,7 @@
 #include <string>
 
 #include "cuda_abi.h"
+#include "vtpu_core.h"
 
 using namespace vtpu_abi;
 
@@ -1041,6 +1042,130 @@ static int sc_grant_env() {
   return 0;
 }
 
+/* ---- the utilisation view ------------------------------------------- */
+
+/* nvmlDeviceGetUtilizationRates, as nvidia-smi reaches it, and device 0. */
+static fn_nvmlDeviceGetUtilizationRates* nvml_util(nvmlDevice_t* dev) {
+  void* nvml = dlopen("libnvidia-ml.so.1", RTLD_NOW | RTLD_LOCAL);
+  CHECK(nvml != nullptr);
+  auto* init = (fn_nvmlInit_v2*)dlsym(nvml, "nvmlInit_v2");
+  auto* by_index = (fn_nvmlDeviceGetHandleByIndex_v2*)dlsym(
+      nvml, "nvmlDeviceGetHandleByIndex_v2");
+  auto* util = (fn_nvmlDeviceGetUtilizationRates*)dlsym(
+      nvml, "nvmlDeviceGetUtilizationRates");
+  CHECK(init && by_index && util);
+  CHECK(init() == NVML_SUCCESS && by_index(0, dev) == NVML_SUCCESS);
+  return util;
+}
+
+/* One call; its wall time in `*secs`. */
+static nvmlUtilization_t util_call(fn_nvmlDeviceGetUtilizationRates* f,
+                                   nvmlDevice_t dev, double* secs) {
+  nvmlUtilization_t u = {12345, 12345};
+  double t0 = mono_s();
+  CHECK(f(dev, &u) == NVML_SUCCESS);
+  *secs = mono_s() - t0;
+  return u;
+}
+
+/* The region as a node's monitor opens it: adopted as it is, no slot. */
+static vtpu_region* monitor_region() {
+  vtpu_region* r = vtpu_region_open(
+      getenv("VTPU_DEVICE_MEMORY_SHARED_CACHE"), 0, nullptr, nullptr);
+  CHECK(r != nullptr);
+  return r;
+}
+
+static int n_procs(vtpu_region* r) {
+  vtpu_device_stats st;
+  CHECK(vtpu_device_get_stats(r, 0, &st) == 0);
+  return st.n_procs;
+}
+
+/* The pod's view with the quota env set: the first call samples the
+ * region over 1/6 s (nothing ran: 0); a call right after repeats it at
+ * once; then `busy_us` of device time booked over `gap` seconds reads as
+ * busy_us / gap of the card, rescaled by `core` (0: none), clamped to 100.
+ * The window is at least `gap`, so the reading is at most `want` and
+ * loses at most a quarter of it to scheduling.  `memory` is always 0, and
+ * no call takes a slot in the region. */
+static void util_reads(int core, uint64_t busy_us, double gap,
+                       unsigned int want) {
+  nvmlDevice_t dev = nullptr;
+  auto* util = nvml_util(&dev);
+  double secs = 0;
+  nvmlUtilization_t u = util_call(util, dev, &secs);
+  double sampled_at = mono_s();
+  CHECK(u.gpu == 0 && u.memory == 0 && secs >= 0.16);
+  vtpu_region* r = monitor_region();
+  int procs = n_procs(r);
+  u = util_call(util, dev, &secs);
+  CHECK(u.gpu == 0 && u.memory == 0 && secs < 0.1);
+  vtpu_busy_add(r, 0, busy_us);
+  double wait = sampled_at + gap - mono_s();
+  if (wait > 0) usleep((useconds_t)(wait * 1e6));
+  u = util_call(util, dev, &secs);
+  printf("nvml_util: core %d%%, %llu us over %.3f s: gpu %u (want %u), "
+         "memory %u\n", core, (unsigned long long)busy_us, gap, u.gpu, want,
+         u.memory);
+  CHECK(u.gpu <= want && u.gpu * 4 >= want * 3 && u.memory == 0);
+  CHECK(secs < 0.1);
+  /* Twice the window's length booked in it: clamped. */
+  vtpu_busy_add(r, 0, (uint64_t)(2 * gap * 1e6));
+  usleep((useconds_t)(gap * 1e6));
+  u = util_call(util, dev, &secs);
+  CHECK(u.gpu == 100 && u.memory == 0);
+  CHECK(n_procs(r) == procs && procs == 0);
+  vtpu_region_close(r);
+}
+
+/* Run this program's `scenario` in a child process; true when it held. */
+static bool run_scenario(const char* scenario) {
+  pid_t pid = fork();
+  if (pid == 0) {
+    execl("/proc/self/exe", "/proc/self/exe", scenario, (char*)nullptr);
+    _exit(127);
+  }
+  int st = 0;
+  waitpid(pid, &st, 0);
+  return WIFEXITED(st) && WEXITSTATUS(st) == 0;
+}
+
+/* At a 50% share; then with no share, and with no quota env at all. */
+static int sc_nvml_util() {
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Gi", 1);
+  setenv("VTPU_DEVICE_CORE_LIMIT", "50", 1);
+  util_reads(50, 60000, 0.3, 40);   /* 20% of the card: 40% of the share */
+  CHECK(run_scenario("nvml_util_noshare"));
+  CHECK(run_scenario("nvml_util_forward"));
+  printf("nvml_util: the pod's own time, of its share\n");
+  return 0;
+}
+
+static int sc_nvml_util_noshare() {
+  std::string region = std::string(getenv(
+      "VTPU_DEVICE_MEMORY_SHARED_CACHE")) + ".noshare";
+  unlink(region.c_str());
+  setenv("VTPU_DEVICE_MEMORY_SHARED_CACHE", region.c_str(), 1);
+  setenv("VTPU_DEVICE_HBM_LIMIT_0", "1Gi", 1);
+  unsetenv("VTPU_DEVICE_CORE_LIMIT");
+  util_reads(0, 60000, 0.3, 20);    /* 20% of the card, no share */
+  unlink(region.c_str());
+  return 0;
+}
+
+/* No quota env: NVML's own answer, unchanged and unsampled. */
+static int sc_nvml_util_forward() {
+  unsetenv("VTPU_DEVICE_HBM_LIMIT_0");
+  unsetenv("VTPU_DEVICE_CORE_LIMIT");
+  nvmlDevice_t dev = nullptr;
+  auto* util = nvml_util(&dev);
+  double secs = 0;
+  nvmlUtilization_t u = util_call(util, dev, &secs);
+  CHECK(u.gpu == 77 && u.memory == 55 && secs < 0.1);
+  return 0;
+}
+
 struct Scenario {
   const char* name;
   int (*fn)();
@@ -1073,6 +1198,9 @@ static const Scenario kScenarios[] = {
     {"busy_short", sc_busy_short, false},
     {"busy_file_bytes", sc_busy_file_bytes, false},
     {"grant_env", sc_grant_env, false},
+    {"nvml_util", sc_nvml_util, false},
+    {"nvml_util_noshare", sc_nvml_util_noshare, false},
+    {"nvml_util_forward", sc_nvml_util_forward, false},
 };
 
 int main(int argc, char** argv) {

@@ -662,6 +662,19 @@ EXPORT nvmlReturn_t nvmlDeviceGetMemoryInfo_v2(nvmlDevice_t device,
   return memory(device, &m->total, &m->free, &m->used);
 }
 
+/* The whole card's utilisation, as the driver would report it: a fixed
+ * reading (MOCK_NVML_UTIL_GPU, default 77; memory 55) that a view under
+ * the interposer must never pass on. */
+EXPORT nvmlReturn_t nvmlDeviceGetUtilizationRates(nvmlDevice_t device,
+                                                  nvmlUtilization_t* u) {
+  unsigned int i = 0;
+  if (nvmlDeviceGetIndex(device, &i) != NVML_SUCCESS)
+    return NVML_ERROR_INVALID_ARGUMENT;
+  u->gpu = (unsigned int)env_u64("MOCK_NVML_UTIL_GPU", 77);
+  u->memory = 55;
+  return NVML_SUCCESS;
+}
+
 /* ---- discovery -------------------------------------------------------- */
 
 /* Layouts of nvml.h (CUDA 12). */

@@ -19,7 +19,9 @@ Host code, compiled by ``g++`` from the port's ``native/`` (``HOST``):
 - ``mockcuda`` and ``mocknvml``: ``native/mock_cuda.cc`` built as a fake
   ``libcuda.so.1`` and a fake ``libnvidia-ml.so.1`` (their sonames), for
   the CPU tests;
-- ``interposer_test``: the interposer's scenario driver, an executable.
+- ``interposer_test``: the interposer's scenario driver, an executable,
+  with ``vtpu_core.cc`` compiled in to read and book the region as a
+  monitor and a tenant would.
 
 A staged copy of the package (``plugin.grant.stage_shim``:
 ``<host>/shim/vtpu_torch/``) carries no region source: it loads the
@@ -107,8 +109,8 @@ def _recipe(name: str, out: str) -> List[str]:
                 "-Wl,-soname," + soname, "-o", out,
                 *_native("mock_cuda.cc"), "-ldl"]
     if name == "interposer_test":
-        return [*_GXX, "-pthread", "-o", out,
-                *_native("interposer_test.cc"), "-ldl"]
+        return [*_GXX, "-pthread", "-I" + VTPUCORE_SRC, "-o", out,
+                *_native("interposer_test.cc"), core, "-ldl"]
     raise KeyError(name)
 
 
@@ -121,8 +123,8 @@ def _inputs(name: str) -> List[str]:
         return core
     src = {"vtpu_cuda": "interposer.cc", "interposer_test":
            "interposer_test.cc"}.get(name, "mock_cuda.cc")
-    return [*_native(src, "cuda_abi.h"), *(core if name == "vtpu_cuda"
-                                           else [])]
+    return [*_native(src, "cuda_abi.h"), *(core if name in (
+        "vtpu_cuda", "interposer_test") else [])]
 
 
 def _target(name: str) -> str:

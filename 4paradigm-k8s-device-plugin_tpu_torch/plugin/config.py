@@ -2,10 +2,13 @@
 up front — the reference's urfave/cli surface (reference main.go:55-161),
 with ``vtpu``'s flags and env aliases.
 
-Two flags turn on subsystems that are not ported to the H100 yet; each
-is refused with an error when turned on, never ignored (ROADMAP.md,
-Queue 1): ``--enable-runtime`` (the broker) and ``--enable-metricsd``.
-``vtpu`` turns both on by default; here they default off.
+``--enable-runtime`` turns on the broker, which is not ported to the
+H100 yet: it is refused with an error when turned on, never ignored
+(ROADMAP.md, Queue 1 item 6).  ``--enable-metricsd`` gives each grant
+metricsd's port (``plugin/grant.py``).  ``vtpu`` turns both on by
+default; here they default off (on a CUDA node the stock tool,
+nvidia-smi, reads NVML, which the interposer answers; metricsd is for
+the node's exporter and vtpu's tools).
 ``--monitor-mode`` (per-pod regions found through the pod lister) and
 ``--enable-legacy-preferred`` (the vdevice controller) run as in
 ``vtpu``; unlike ``vtpu`` the second does not refuse a daemon without
@@ -39,7 +42,6 @@ ALLOCATION_POLICIES = ("pack", "spread")
 # Flags whose subsystem is not ported: flag -> what is missing.
 UNPORTED = {
     "enable_runtime": ("--enable-runtime", "the runtime broker"),
-    "enable_metricsd": ("--enable-metricsd", "vtpu-metricsd"),
 }
 
 

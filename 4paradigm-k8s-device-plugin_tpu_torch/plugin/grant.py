@@ -57,9 +57,17 @@ interposer:
   rebuilds ownership out of the kubelet's checkpoint.  ``vtpu`` writes
   the granted IDs under both, so the checkpoint loses the request.
 
-Not emitted until their subsystem is ported (ROADMAP.md, Queue 1):
-metricsd's env and the runtime socket.  Never emitted on the H100: the
-env-override marker of the PJRT preload library.
+- metricsd (``--enable-metricsd``): ``VTPU_METRICSD_PORT``, the port
+  the bootstrap's metricsd binds in the container, as ``vtpu`` sets it
+  (server.py:505-515).  ``vtpu`` also moves libtpu's own metrics service
+  to the port plus an offset (``TPU_RUNTIME_METRICS_PORTS``, a libtpu
+  variable) and names it as metricsd's upstream
+  (``VTPU_METRICSD_UPSTREAM``): a CUDA node runs no such service, so
+  neither is emitted.
+
+Not emitted until the broker is ported (ROADMAP.md, Queue 1 item 6): the
+runtime socket.  Never emitted on the H100: the env-override marker of
+the PJRT preload library.
 """
 
 from __future__ import annotations
@@ -222,6 +230,8 @@ def grant(cfg: Config, spec: PluginSpec, vdevs: Sequence[VDevice],
     if cfg.pcibus_file:
         envs[envspec.ENV_PCIBUS_FILE] = os.path.join(CONTAINER_LIB_DIR,
                                                      PCIBUS_NAME)
+    if cfg.enable_metricsd:
+        envs["VTPU_METRICSD_PORT"] = str(cfg.metricsd_port)
 
     host = cfg.host_lib_dir
     shim = os.path.join(host, SHIM_DIR)

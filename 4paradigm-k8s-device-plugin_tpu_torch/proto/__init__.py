@@ -2,7 +2,12 @@
 copies of ``vtpu``'s.  ``deviceplugin_pb2.py`` is protoc's output for the
 API's ``deviceplugin.proto`` (the descriptor and wire names are the
 kubelet's, so it sees no difference); ``deviceplugin_grpc.py`` is the
-hand-written service glue.  Only this package and ``plugin/server.py``
+hand-written service glue.
+
+Also here: the MetricService protocol vtpu-metricsd speaks
+(``tpu_metrics.proto``, ``tpu_metrics_pb2.py``, ``tpu_metrics_grpc.py``),
+imported directly, not re-exported.  Only this package,
+``plugin/server.py``, ``metricsd/server.py`` and ``tools/vtpu_smi.py``
 import ``grpc`` and ``google.protobuf``."""
 
 from . import deviceplugin_pb2 as pb  # noqa: F401

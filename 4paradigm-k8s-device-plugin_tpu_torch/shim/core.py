@@ -8,7 +8,9 @@ source at first use (``ops/_build.py``), so a region written by this port
 is the same region ``vtpu``'s tools read.
 
 This is the subset of ``vtpu.shim.core`` that in-process enforcement
-needs: ``SharedRegion`` and ``RateLease``.
+and the views (``metricsd``, ``tools``) need: ``SharedRegion`` and
+``RateLease``.  A ``SharedRegion`` opened with no limits adopts the region
+as it is and takes no slot in it: every view opens it so.
 """
 
 from __future__ import annotations
@@ -70,6 +72,8 @@ def load() -> ctypes.CDLL:
         lib.vtpu_proc_register.restype = i
         lib.vtpu_proc_register.argtypes = [vp, i]
         lib.vtpu_proc_deregister.argtypes = [vp]
+        lib.vtpu_sweep_dead_host.restype = i
+        lib.vtpu_sweep_dead_host.argtypes = [vp]
         lib.vtpu_mem_acquire.restype = i
         lib.vtpu_mem_acquire.argtypes = [vp, i, u64, i]
         lib.vtpu_mem_release.argtypes = [vp, i, u64]
@@ -129,6 +133,11 @@ class SharedRegion:
         """Leave the region; the native side drops this process's
         remaining charges from the device ledgers."""
         self.lib.vtpu_proc_deregister(self.handle)
+
+    def sweep_dead_host(self) -> int:
+        """Reclaim the slots of processes dead by their host pid: for the
+        node's monitor only, which sees every pid.  Returns how many."""
+        return self.lib.vtpu_sweep_dead_host(self.handle)
 
     # -- memory --
     def mem_acquire(self, dev: int, nbytes: int,

@@ -13,7 +13,11 @@ PyTorch tenant:
 - ``pyshim.bootstrap()`` says which layer enforces the quota, and
   ``pyshim.install_py_enforcement()`` installs the Python enforcement
   where no interposer is in the process (it stands down under one, so
-  nothing is charged twice).
+  nothing is charged twice);
+- with ``VTPU_METRICSD_PORT`` (``--enable-metricsd``), the first Python
+  process of the container to bind that port serves the pod's metricsd
+  (``metricsd.server.maybe_start_in_container``); without it nothing of
+  metricsd, and no ``grpc``, is imported.
 
 Allocate's ``PYTHONPATH`` replaces one that the image set in its
 Dockerfile's ENV (the kubelet puts the plugin's env over the image's);
@@ -57,6 +61,18 @@ def _warn_pythonpath_merge():
               file=sys.stderr)
 
 
+def _start_metricsd():
+    """The pod's grant on the MetricService wire, served by the
+    container's first process to bind the port; a failure is said and
+    never stops the program."""
+    try:
+        from vtpu_torch.metricsd import server as metricsd
+
+        metricsd.maybe_start_in_container()
+    except Exception as e:  # noqa: BLE001 - the program starts regardless
+        print(f"[vtpu shim] metricsd start failed: {e}", file=sys.stderr)
+
+
 def _main():
     # The staged copy keeps the package beside this file; in the source
     # tree the package is found the usual way.
@@ -69,6 +85,8 @@ def _main():
         from vtpu_torch.utils import envspec
     except ImportError:
         return
+    if os.environ.get("VTPU_METRICSD_PORT"):
+        _start_metricsd()
     spec = envspec.quota_from_env()
     if not (spec.hbm_limit_bytes or spec.core_limit_pct):
         return
@@ -80,9 +98,8 @@ def _main():
         print("[vtpu shim] VTPU_FORCE_PY_ENFORCEMENT ignored: the "
               "interposer enforces this quota, and the python enforcement "
               "beside it would charge every byte twice", file=sys.stderr)
-    # The metricsd block of vtpu's bootstrap (VTPU_METRICSD_PORT) waits
-    # for metricsd's port, ROADMAP Queue 1 item 5; its broker bridge
-    # (VTPU_RUNTIME_SOCKET) for the broker's, item 6.
+    # vtpu's broker bridge (VTPU_RUNTIME_SOCKET) waits for the broker,
+    # ROADMAP Queue 1 item 6.
     try:
         pyshim.install_py_enforcement()
     except Exception as e:  # noqa: BLE001 - the program starts regardless

@@ -114,8 +114,9 @@ ALL_ENV_VARS = [
 # Python (``os.environ``) and in ``native/interposer.cc`` (``getenv``),
 # and every one Allocate sets, by the layer that reads it: "contract"
 # (set by Allocate, read in the container), "daemon", "shim" (the
-# in-container bootstrap and enforcement), "k8s" (the in-cluster API
-# client), "build" (``ops/_build.py``).  ``vtpu``'s registry
+# in-container bootstrap and enforcement), "tools" (metricsd and the
+# views under ``tools/``), "k8s" (the in-cluster API client), "build"
+# (``ops/_build.py``).  ``vtpu``'s registry
 # (``utils/envspec.py``) with the port's own keys; no TPU-only key.
 # ``tests/test_torch_bootstrap.py`` walks the sources and holds every
 # read to it.
@@ -140,12 +141,14 @@ ENV_FLAGS = {
     ENV_PYTHONPATH_MERGED: "contract",
     "PYTHONPATH": "contract",
     "VTPU_CORE_INDICES": "contract",
+    # metricsd's port in the container (with --enable-metricsd; the daemon
+    # reads the same name as its --metricsd-port alias).
+    "VTPU_METRICSD_PORT": "contract",
     # The daemon (plugin/config.py, discovery, health); the reference's
     # own env aliases of its flags (main.go:55-161) among them.
     "VTPU_DISCOVERY": "daemon",
     "VTPU_ALLOCATION_POLICY": "daemon",
     "VTPU_METRICSD_ENABLE": "daemon",
-    "VTPU_METRICSD_PORT": "daemon",
     "VTPU_ENABLE_RUNTIME": "daemon",
     "VTPU_MONITOR_MODE": "daemon",
     "VTPU_HOST_LIB_DIR": "daemon",
@@ -175,6 +178,11 @@ ENV_FLAGS = {
     ENV_EXTRA_PYTHONPATH: "shim",
     ENV_FORCE_PY_ENFORCEMENT: "shim",
     "VTPU_RATE_LEASE_US": "shim",
+    # metricsd and the tools: the fake backend, a broker socket (refused
+    # until the broker is ported), the exporter's port.
+    "VTPU_METRICSD_FAKE": "tools",
+    "VTPU_METRICSD_BROKER": "tools",
+    "VTPU_METRICS_PORT": "tools",
     # The interposer's own channel into a tenant (shim/interposer.py's
     # tenant_env; in a container, the ld.so.preload mount).
     "LD_PRELOAD": "shim",

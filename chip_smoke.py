@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs ten phases, each of which asserts; any failure exits non-zero
-and prints no result line.
+then runs eleven phases, each of which asserts; any failure exits
+non-zero and prints no result line.
 
 1. Device: the card's name and power limit, the versions, the build (the
    CUDA kernels, the region, the interposer and its test programs).
@@ -86,6 +86,26 @@ and prints no result line.
    after exit.  Last, the daemon restarted with the legacy controller
    over a kubelet checkpoint that gives vdevice 0 to a live pod: the stale
    ID 0 is answered with vdevice 1 and the controller's annotations.
+11. What a pod sees: the daemon as in phase 10 with ``--enable-metricsd``;
+   each of two grants carries VTPU_METRICSD_PORT (mapped to a port of the
+   pod's own, as each container has its own localhost) and none of
+   libtpu's metrics variables.  Both pods' tenants (interposed, bench
+   config, 50% FORCE) serve their metricsd from the bootstrap.  While
+   both hold the card idle: each pod's metricsd total is its cap and its
+   usage its interposer's charge to the byte; so are tpu-info's (in the
+   pod's env), vtpu-smi --scan's and the Prometheus exporter's (with each
+   pod's metricsd gauges).  Then idle, pod A flat out beside an idle pod
+   B, and both flat out: metricsd's duty of the share (flat out at least
+   85, idle at most 10), nvidia-smi under each pod's interposer, in loop
+   mode over metricsd's own window (the cap, and utilization.gpu within
+   15 of metricsd's duty; the idle pod at most 10 while the card's own
+   reading, averaged over the window, is at least 40) and tpu-info; no
+   view takes a slot in a region.  Every ledger 0 after exit.  Prints
+   metricsd's GetRuntimeMetric p50, nvmlDeviceGetUtilizationRates' first
+   and later call under the interposer, and the pods' rates beside phase
+   10's.  Phase 11 alone: ``python3 -c "import chip_smoke, tempfile,
+   torch; chip_smoke.phase_device(torch); chip_smoke.phase_views(torch,
+   tempfile.mkdtemp())"``.
 
 The line before the last is one JSON object with each kernel's numbers;
 the last is ``{"ok": true, "device": {...}}``.
@@ -1777,22 +1797,527 @@ def phase_pods(torch, tmp):
           == answers[1][0]["VTPU_DEVICE_HBM_LIMIT_0"],
           "the re-picked grant's cap")
     check(all(node == "chip" for node in lists), f"pod lists for {lists}")
-    return {"views": views, "tenants": rows, "python": py}
+    return {"views": views, "tenants": rows, "python": py, "host": host}
+
+
+# -- phase 11: what a pod sees ------------------------------------------------
+
+# Two more pods pending on the node, granted halves of the card with
+# metricsd's port.
+VIEW_PODS = [{"metadata": {"namespace": "default", "name": name, "uid": uid},
+              "status": {"phase": "Pending"},
+              "spec": {"containers": [{
+                  "name": "main", "env": [],
+                  "resources": {"limits": {"4paradigm.com/vtpu": "1"}}}]}}
+             for name, uid in (("view-a", "cccc0000-0000"),
+                               ("view-b", "dddd0000-0000"))]
+# Each stage runs this long before its views are read (the watcher books
+# and the bucket settles), and metricsd's duty is read over this window.
+VIEW_SETTLE_S = 3.0
+VIEW_DUTY_S = 2.0
+# The asserted bounds: a pod flat out at its 50% share reads at least
+# DUTY_BUSY of its share (it books about 0.55 of the card, PERF.md §5, so
+# its duty clamps at 100), an idle pod at most DUTY_IDLE; nvidia-smi under
+# the interposer within SMI_DUTY_TOL points of metricsd; the card's raw
+# utilisation, averaged over the window, at least RAW_BUSY while one pod
+# runs.
+DUTY_BUSY, DUTY_IDLE, SMI_DUTY_TOL, RAW_BUSY = 85.0, 10.0, 15.0, 40.0
+# The card's own utilisation is read this often over a pod's window.
+RAW_PERIOD_S = 0.25
+SMI_QUERY = "--query-gpu=memory.total,memory.used,utilization.gpu"
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def view_pod_child(torch, rundir, name):
+    """Phase 11, one pod's tenant with its grant's env: the bootstrap
+    serves the pod's metricsd from this process; the bench config is
+    served once and the charge written to ``<rundir>/<name>.report``;
+    then, from the time ``<rundir>/run.<name>`` exists until
+    ``<rundir>/stop`` does, the greedy loop runs flat out, its step count
+    sampled against CLOCK_MONOTONIC."""
+    from vtpu_torch import entry
+    from vtpu_torch.metricsd import server as metricsd
+    from vtpu_torch.ops import flash_attention as fa
+    from vtpu_torch.shim import interposer
+
+    res = bootstrap_seen(interposed=True)
+    port = int(os.environ["VTPU_METRICSD_PORT"])
+    check(metricsd._started is not None and metricsd._started[2] == port,
+          f"the bootstrap serves no metricsd on {port} in this tenant")
+    out = entry.serve("bench", *TENANT_SHAPE, steps=3)
+    model, tokens = out["model"], out["tokens"].cuda()
+    torch.cuda.synchronize()
+    res["charged_bytes"] = interposer.stats()["charged_bytes"]
+    with open(os.path.join(rundir, f"{name}.report"), "w") as f:
+        json.dump({"charged_bytes": res["charged_bytes"]}, f)
+    print("READY", flush=True)
+    go, stop = os.path.join(rundir, f"run.{name}"), os.path.join(rundir,
+                                                                 "stop")
+    while not os.path.exists(go):
+        time.sleep(0.005)
+    fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+    steps, trace = 0, [(time.monotonic(), 0)]
+    with torch.inference_mode():
+        while not os.path.exists(stop):
+            tokens = torch.argmax(model(tokens), dim=-1).int()
+            steps += 1
+            if steps % 10 == 0:
+                trace.append((time.monotonic(), steps))
+        torch.cuda.synchronize()
+    trace.append((time.monotonic(), steps))
+    res.update(trace=trace, launches_by_route=dict(
+        fa.flash_attention.route_launches),
+        charged_end=interposer.stats()["charged_bytes"])
+    check(steps > 0 and res["launches_by_route"]["sm90"] > 0
+          and res["launches_by_route"]["wmma"] == 0,
+          f"attention off the sm90 route: {res['launches_by_route']}")
+    return res
+
+
+def nvml_util_child():
+    """Phase 11, under a pod's interposer: nvmlDeviceGetUtilizationRates
+    called as nvidia-smi calls it (dlsym on libnvidia-ml), three times:
+    the first (it samples the region), one right after (the last answer
+    again) and one after 0.2 s (a new window); each call's ms and value."""
+    import ctypes
+
+    class Util(ctypes.Structure):
+        _fields_ = [("gpu", ctypes.c_uint), ("memory", ctypes.c_uint)]
+
+    nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    dev = ctypes.c_void_p()
+    check(nvml.nvmlInit_v2() == 0 and nvml.nvmlDeviceGetHandleByIndex_v2(
+        0, ctypes.byref(dev)) == 0, "NVML does not open card 0")
+    calls = []
+    for pause in (0.0, 0.2, 0.0):
+        u = Util()
+        t0 = time.perf_counter()
+        rc = nvml.nvmlDeviceGetUtilizationRates(dev, ctypes.byref(u))
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3, "rc": rc,
+                      "gpu": u.gpu, "memory": u.memory})
+        time.sleep(pause)
+    check(all(c["rc"] == 0 and c["memory"] == 0 for c in calls),
+          f"nvmlDeviceGetUtilizationRates under the interposer: {calls}")
+    return {"calls": calls}
+
+
+def smi_row(line, s):
+    total, used, util = (int(v) for v in line.split(","))
+    return {"total_mib": total, "used_mib": used, "gpu": util, "s": s}
+
+
+class SmiLoop:
+    """nvidia-smi in loop mode (``--loop-ms``) under ``env``: one process
+    that stays alive, so under the interposer each row after its first
+    covers the time since the row before, as metricsd's duty covers the
+    time since its last sample.  Its rows are read through a
+    pseudo-terminal, on which nvidia-smi writes each row as it is made."""
+
+    def __init__(self, env, period_s):
+        import pty
+
+        self.master, slave = pty.openpty()
+        self.err = tempfile.TemporaryFile()
+        self.p = subprocess.Popen(
+            ["nvidia-smi", SMI_QUERY, "--format=csv,noheader,nounits",
+             f"--loop-ms={int(period_s * 1000)}"], env=env,
+            stdin=subprocess.DEVNULL, stdout=slave, stderr=self.err)
+        os.close(slave)
+        self.buf, self.t0 = b"", time.monotonic()
+
+    def stderr(self):
+        self.err.seek(0)
+        return self.err.read()[-1000:].decode(errors="replace")
+
+    def row(self, timeout=30.0):
+        """The next row, parsed, and the time it arrived."""
+        import select
+
+        deadline = time.monotonic() + timeout
+        while not self.buf.strip(b"\r\n") or b"\n" not in self.buf.lstrip(
+                b"\r\n"):
+            left = deadline - time.monotonic()
+            ready = select.select([self.master], [], [], max(left, 0))[0]
+            check(ready and left > 0, f"nvidia-smi --loop-ms wrote no row "
+                  f"in {timeout} s (rc {self.p.poll()}): {self.buf!r} "
+                  f"{self.stderr()}")
+            try:
+                chunk = os.read(self.master, 4096)
+            except OSError:
+                chunk = b""
+            check(chunk, f"nvidia-smi --loop-ms ended (rc {self.p.poll()}):"
+                  f" {self.buf!r} {self.stderr()}")
+            self.buf += chunk
+        line, self.buf = self.buf.lstrip(b"\r\n").split(b"\n", 1)
+        now = time.monotonic()
+        try:
+            return smi_row(line.decode().strip(), now - self.t0), now
+        except ValueError:
+            check(False, f"nvidia-smi --loop-ms wrote {line!r} "
+                  f"{self.stderr()}")
+
+    def close(self):
+        if self.p.poll() is None:
+            self.p.terminate()
+            try:
+                self.p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.p.kill()
+                self.p.wait()
+        os.close(self.master)
+        self.err.close()
+
+
+def rate_between(trace, t0, t1):
+    """Steps a second between two CLOCK_MONOTONIC times, from a tenant's
+    (time, steps) samples."""
+    def steps_at(t):
+        return max((s for ts, s in trace if ts <= t), default=0)
+
+    return (steps_at(t1) - steps_at(t0)) / (t1 - t0)
+
+
+def phase_views(torch, tmp, host=None, pods_rates=None):
+    import grpc
+
+    from vtpu_torch.metricsd import server as msrv
+    from vtpu_torch.plugin.config import parse_args
+    from vtpu_torch.plugin.grant import stage_shim, staged_files
+    from vtpu_torch.plugin.main import Daemon
+    from vtpu_torch.proto import pb
+    from vtpu_torch.proto import tpu_metrics_grpc as mrpc
+    from vtpu_torch.proto import tpu_metrics_pb2 as mpb
+    from vtpu_torch.shim import interposer
+    from vtpu_torch.shim.core import SharedRegion
+    from vtpu_torch.utils.envspec import parse_quantity
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    if host is None:          # run alone: stage as phase 10 does
+        host = os.path.join(tmp, "views-host")
+        staged_files(host, interposer.library_path())
+        stage_shim(host)
+    plugins = os.path.join(tmp, "views-kubelet")
+    os.makedirs(plugins)
+    kubelet = FakeKubelet(plugins)
+    cfg = parse_args(["--discovery", "nvml", "--device-split-count", "2",
+                      "--monitor-mode", "true", "--node-name", "chip",
+                      "--enable-metricsd", "true",
+                      "--device-plugin-path", plugins + "/",
+                      "--host-lib-dir", host])
+    d = Daemon(cfg, pod_lister=lambda node: VIEW_PODS)
+    try:
+        check(d.start_plugins(), "the daemon with metricsd did not start")
+        reg, stub, ch = kubelet.plugin()
+        ids = [dev.ID for dev in next(stub.ListAndWatch(pb.Empty())).devices]
+        answers = [kubelet.allocate(stub, [i]) for i in ids]
+        ch.close()
+    finally:
+        d.stop_plugins()
+        kubelet.stop()
+    names = ("A", "B")
+    envs, caps, regions, ports = [], [], [], []
+    for (genv, mounts, _), pod in zip(answers, VIEW_PODS):
+        check(genv.get("VTPU_METRICSD_PORT") == str(cfg.metricsd_port)
+              and "TPU_RUNTIME_METRICS_PORTS" not in genv
+              and "VTPU_METRICSD_UPSTREAM" not in genv,
+              f"{pod['metadata']['name']}: metricsd's env {genv}")
+        env = pod_env(genv, mounts, os.path.join(
+            tmp, f"image-{pod['metadata']['name']}"))
+        # Both pods share this host's ports: each gets its own, as each
+        # container would have its own localhost.
+        ports.append(free_port())
+        env["VTPU_METRICSD_PORT"] = str(ports[-1])
+        envs.append(env)
+        caps.append(parse_quantity(genv["VTPU_DEVICE_HBM_LIMIT_0"]))
+        regions.append(env["VTPU_DEVICE_MEMORY_SHARED_CACHE"])
+    say("views: grants " + json.dumps([{k: v for k, v in a[0].items()
+                                        if "METRIC" in k or "LIMIT" in k}
+                                       for a in answers]))
+    rundir = os.path.join(tmp, "views-run")
+    os.makedirs(rundir)
+    errs = [open(os.path.join(tmp, f"views.{n}.err"), "w+") for n in names]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--child", "viewpod", rundir, n], env=env,
+                              stdout=subprocess.PIPE, stderr=err, text=True)
+             for n, env, err in zip(names, envs, errs)]
+    channels = [grpc.insecure_channel(f"127.0.0.1:{p}") for p in ports]
+    stubs = [mrpc.RuntimeMetricServiceStub(c) for c in channels]
+    tool_env = {k: v for k, v in os.environ.items()
+                if not k.startswith(("VTPU_", "LD_PRELOAD", "PYTHONPATH"))}
+
+    def stderr_of(i):
+        errs[i].seek(0)
+        return errs[i].read()[-3000:]
+
+    def metric(i, name):
+        resp = stubs[i].GetRuntimeMetric(mpb.MetricRequest(metric_name=name),
+                                         timeout=10)
+        vals = [m.gauge.as_double if m.gauge.WhichOneof("value")
+                == "as_double" else m.gauge.as_int
+                for m in resp.metric.metrics]
+        check(len(vals) == 1, f"pod {names[i]}: metricsd shows {len(vals)} "
+              f"devices for {name}")
+        return vals[0]
+
+    def n_procs(i):
+        with SharedRegion(regions[i]) as r:
+            return int(r.device_stats(0).n_procs)
+
+    def tool(args, env):
+        return subprocess.Popen([sys.executable, "-m", *args], env=env,
+                                cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+
+    def tool_json(p):
+        out, err = p.communicate(timeout=120)
+        check(p.returncode == 0, f"{p.args}: {err[-2000:]}")
+        return json.loads(out)
+
+    def pod_window(i):
+        """Pod i's window, read by nvidia-smi under its interposer and by
+        metricsd alike: metricsd's duty is asked for as each of the two
+        rows arrives, so both measure from one moment to the other."""
+        loop = SmiLoop(envs[i], VIEW_DUTY_S)
+        try:
+            loop.row()                                # the window's start
+            metric(i, msrv.METRIC_DUTY_CYCLE)
+            smi, t_end = loop.row()                   # the window's end
+            duty = metric(i, msrv.METRIC_DUTY_CYCLE)
+            return smi, duty, time.monotonic() - t_end
+        finally:
+            loop.close()
+
+    def duty_stage(label, busy):
+        """Each pod's window (``pod_window``), and over it the card's own
+        utilisation, nvidia-smi without an interposer every RAW_PERIOD_S
+        (NVML's reading covers its own short sample period, so one row
+        alone would be one 1/6 s sample of a card that runs a throttled
+        pod in bursts: the mean of the rows is the window's); then each
+        pod's tpu-info over a second of its own.  Asserted against
+        ``busy`` (which pods run).  Nothing else starts in the window: a
+        Python start beside them takes CPU from the launch-bound tenants
+        (8 cores), and their device time with it."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        procs_before = [n_procs(i) for i in range(2)]
+        raw_loop = SmiLoop(tool_env, RAW_PERIOD_S)
+        try:
+            with ThreadPoolExecutor(2) as ex:
+                windows = [ex.submit(pod_window, i) for i in range(2)]
+                rows = []
+                while not all(w.done() for w in windows):
+                    rows.append(raw_loop.row()[0])
+                windows = [w.result() for w in windows]
+        finally:
+            raw_loop.close()
+        raw = {"gpu": statistics.mean(r["gpu"] for r in rows),
+               "rows": [r["gpu"] for r in rows]}
+        check([n_procs(i) for i in range(2)] == procs_before == [1, 1],
+              f"{label}: a view took a slot: {procs_before}")
+        smi = [w[0] for w in windows]
+        duty = [w[1] for w in windows]
+        infos = [tool(["vtpu_torch.tools.tpu_info", "--json",
+                       "--interval", "1"],
+                      {k: v for k, v in env.items() if k != "LD_PRELOAD"})
+                 for env in envs]
+        info = [tool_json(p) for p in infos]
+        row = {"metricsd_duty": duty, "nvidia_smi": smi, "raw": raw,
+               "duty_read_after_row_s": [w[2] for w in windows],
+               "tpu_info_share_duty": [r[0]["share_duty_pct"] for r in info]}
+        say(f"views: {label}: " + json.dumps(row))
+        for i in range(2):
+            if busy[i]:
+                check(duty[i] >= DUTY_BUSY, f"{label}: pod {names[i]} flat "
+                      f"out reads duty {duty[i]}")
+            else:
+                check(duty[i] <= DUTY_IDLE, f"{label}: idle pod "
+                      f"{names[i]} reads duty {duty[i]}")
+            check(abs(smi[i]["gpu"] - duty[i]) <= SMI_DUTY_TOL,
+                  f"{label}: pod {names[i]}'s nvidia-smi reads "
+                  f"{smi[i]['gpu']}, metricsd {duty[i]}")
+            check(abs(row["tpu_info_share_duty"][i] - duty[i])
+                  <= SMI_DUTY_TOL, f"{label}: pod {names[i]}'s tpu-info "
+                  f"reads {row['tpu_info_share_duty'][i]}, metricsd "
+                  f"{duty[i]}")
+            # nvidia-smi rounds MiB up.
+            check(smi[i]["total_mib"] == -(-caps[i] // 2**20),
+                  f"{label}: pod {names[i]}'s nvidia-smi total "
+                  f"{smi[i]['total_mib']} MiB, cap {caps[i]}")
+        if any(busy) and not all(busy):
+            check(raw["gpu"] >= RAW_BUSY and smi[busy.index(False)]["gpu"]
+                  <= DUTY_IDLE, f"{label}: the idle pod's nvidia-smi does not "
+                  f"differ from the card's: {row}")
+        return row
+
+    got = {}
+    try:
+        for i, p in enumerate(procs):
+            line = p.stdout.readline()
+            if line.strip() != "READY":
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    pass
+            check(line.strip() == "READY", f"pod {names[i]} not ready: "
+                  f"{line!r} (rc {p.poll()}) {stderr_of(i)}")
+        charges = []
+        for n in names:
+            with open(os.path.join(rundir, f"{n}.report")) as f:
+                charges.append(json.load(f)["charged_bytes"])
+        # 1. Both pods hold the card's memory, idle: every view's ledger
+        # is that pod's own charge, every total its cap.
+        for i in range(2):
+            total = metric(i, msrv.METRIC_HBM_TOTAL)
+            usage = metric(i, msrv.METRIC_HBM_USAGE)
+            check(total == caps[i] and usage == charges[i] > 0,
+                  f"pod {names[i]}: metricsd total {total} usage {usage}, "
+                  f"cap {caps[i]} charge {charges[i]}")
+        lat = []
+        for _ in range(50):
+            for i in range(2):
+                t0 = time.perf_counter()
+                metric(i, msrv.METRIC_HBM_USAGE)
+                lat.append((time.perf_counter() - t0) * 1e3)
+        got["metricsd_ms_p50"] = statistics.median(lat)
+        infos = [tool_json(tool(["vtpu_torch.tools.tpu_info", "--json",
+                                 "--interval", "0.2"],
+                                {k: v for k, v in env.items()
+                                 if k != "LD_PRELOAD"})) for env in envs]
+        for i, rows in enumerate(infos):
+            check(len(rows) == 1 and rows[0]["hbm_limit_bytes"] == caps[i]
+                  and rows[0]["hbm_used_bytes"] == charges[i]
+                  and rows[0]["card"] == answers[i][0][
+                      "VTPU_DEVICE_MAP"].split(":", 1)[1],
+                  f"pod {names[i]}: tpu-info {rows}")
+        shared = os.path.join(host, "shared")
+        scan = tool_json(tool(["vtpu_torch.tools.vtpu_smi", "--scan", shared,
+                               "--json"], tool_env))
+        ledgers = {s["region"]: s["devices"][0]["used_bytes"] for s in scan}
+        check([ledgers.get(r) for r in regions] == charges,
+              f"vtpu-smi --scan: {ledgers}, charges {charges}")
+        mport = free_port()
+        exporter = tool(["vtpu_torch.tools.metrics_server", "--port",
+                         str(mport), "--scan", shared,
+                         *sum((["--metricsd", f"127.0.0.1:{p}"]
+                               for p in ports), [])], tool_env)
+        try:
+            import urllib.request
+
+            deadline = time.monotonic() + 60
+            while True:
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{mport}/metrics",
+                            timeout=30) as r:
+                        text = r.read().decode()
+                    break
+                except OSError:
+                    check(exporter.poll() is None
+                          and time.monotonic() < deadline,
+                          "the exporter did not answer")
+                    time.sleep(0.2)
+        finally:
+            exporter.terminate()
+            exporter.communicate(timeout=30)
+        for i in range(2):
+            region = os.path.basename(os.path.dirname(regions[i]))
+            target = f'target="127.0.0.1:{ports[i]}"'
+            for line in (
+                    f'vtpu_hbm_used_bytes{{region="{region}",device="0"}} '
+                    f'{charges[i]}',
+                    f"vtpu_metricsd_up{{{target}}} 1",
+                    f'vtpu_metricsd_virtual_value{{{target},metric='
+                    f'"{msrv.METRIC_HBM_USAGE}",device="0"}} {charges[i]}',
+                    f'vtpu_metricsd_virtual_value{{{target},metric='
+                    f'"{msrv.METRIC_HBM_TOTAL}",device="0"}} {caps[i]}'):
+                check(line in text, f"the exporter's /metrics lacks {line}")
+        idle = duty_stage("both idle", (False, False))
+        check([r["used_mib"] for r in idle["nvidia_smi"]]
+              == [-(-c // 2**20) for c in charges],
+              f"nvidia-smi's memory.used is not each pod's charge: {idle}")
+        nvml = child(["nvmlutil"], {k: v for k, v in envs[0].items()
+                                    if k != "PYTHONPATH"})
+        check(n_procs(0) == 1, "the NVML probe took a slot in pod A's region")
+        got["nvml_calls"] = nvml["calls"]
+        say("views: nvmlDeviceGetUtilizationRates under the interposer: "
+            + json.dumps(nvml["calls"]))
+        # 2. Pod A flat out, pod B idle at READY; then both flat out.
+        marks = [time.monotonic()]
+        open(os.path.join(rundir, "run.A"), "w").close()
+        time.sleep(VIEW_SETTLE_S)
+        one = duty_stage("pod A flat out, pod B idle", (True, False))
+        marks.append(time.monotonic())
+        open(os.path.join(rundir, "run.B"), "w").close()
+        time.sleep(VIEW_SETTLE_S)
+        marks.append(time.monotonic())
+        both = duty_stage("both flat out", (True, True))
+        marks.append(time.monotonic())
+        open(os.path.join(rundir, "stop"), "w").close()
+        rows = []
+        for i, p in enumerate(procs):
+            out, _ = p.communicate(timeout=300)
+            res = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            check(p.returncode == 0 and res, f"pod {names[i]} failed "
+                  f"(rc {p.returncode}): {stderr_of(i)}")
+            rows.append(json.loads(res[-1][len("RESULT "):]))
+    finally:
+        for c in channels:
+            c.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for err in errs:
+            err.close()
+    for i, r in enumerate(regions):
+        used = region_used(r)
+        check(used == 0, f"pod {names[i]}: region holds {used} bytes after "
+              "exit")
+    alone = rate_between(rows[0]["trace"], marks[0] + 1.0, marks[1])
+    paired = [rate_between(row["trace"], marks[2], marks[3]) for row in rows]
+    got.update(idle=idle, one=one, both=both, charges=charges, caps=caps,
+               alone_steps_per_s=alone, paired_steps_per_s=paired)
+    say(f"views ({card}): metricsd GetRuntimeMetric p50 "
+        f"{got['metricsd_ms_p50']:.3f} "
+        f"ms; nvmlDeviceGetUtilizationRates first "
+        f"{nvml['calls'][0]['ms']:.1f} ms, right after "
+        f"{nvml['calls'][1]['ms']:.3f} ms, a new window "
+        f"{nvml['calls'][2]['ms']:.3f} ms")
+    say(f"views ({card}): pod A alone {alone:.2f} steps/s; both "
+        + ", ".join(f"{r:.2f}" for r in paired) + " steps/s (phase 10's "
+        "pair: " + (", ".join(f"{r:.2f}" for r in pods_rates)
+                    if pods_rates else "not run") + "); charges "
+        f"{charges}; ledgers 0 after exit")
+    return got
 
 
 def child_main(args):
     """``--child serve`` (phase 6), ``--child metered <go file>`` (phase
     7), ``--child granted <go file>`` (phase 8), ``--child train`` or
     ``--child train_parity`` (phase 9), ``--child pod <go file> <report
-    file>`` or ``--child pyshim`` (phase 10): one tenant; prints its
-    RESULT line."""
+    file>`` or ``--child pyshim`` (phase 10), ``--child viewpod <dir>
+    <name>`` or ``--child nvmlutil`` (phase 11): one tenant or probe;
+    prints its RESULT line."""
     import torch
 
-    if args[0] not in ("pod", "pyshim"):   # those take the pod's shim
+    if args[0] not in ("pod", "pyshim", "viewpod"):  # the pod's shim
         sys.path.insert(0, REPO)
     try:
         if args[0] == "pod":
             res = pod_child(torch, args[1], args[2])
+        elif args[0] == "viewpod":
+            res = view_pod_child(torch, args[1], args[2])
+        elif args[0] == "nvmlutil":
+            res = nvml_util_child()
         elif args[0] == "pyshim":
             res = pyshim_child(torch)
         elif args[0] == "serve":
@@ -1837,7 +2362,9 @@ def main():
             phase_metered(tmp)
             phase_plugin(torch, tmp)
             phase_train(torch, tmp)
-            phase_pods(torch, tmp)
+            pods = phase_pods(torch, tmp)
+            phase_views(torch, tmp, pods["host"],
+                        [r["steps_per_s"] for r in pods["tenants"]])
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1

@@ -164,6 +164,49 @@ def test_sitecustomize_installs_on_torch_import(staged, tmp_path):
     assert "PYTHONPATH merged: kept /app/lib after the vtpu shim" in r.stderr
 
 
+def test_sitecustomize_starts_metricsd_once(staged, tmp_path):
+    """With the grant's VTPU_METRICSD_PORT the staged bootstrap serves the
+    pod's metricsd from the first process to bind the port, and a second
+    process of the container starts none; without the port the bootstrap
+    imports neither metricsd nor grpc."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    grant = dict(PYTHONPATH=staged, VTPU_DEVICE_HBM_LIMIT_0="3Gi",
+                 VTPU_DEVICE_MAP="0:GPU-test",
+                 VTPU_DEVICE_MEMORY_SHARED_CACHE=str(tmp_path / "r.cache"))
+    code = """
+        import json, sys, time
+        m = sys.modules.get("vtpu_torch.metricsd.server")
+        print(json.dumps({"grpc": "grpc" in sys.modules,
+                          "served": m is not None and m._started is not None,
+                          "port": m._started[2] if m and m._started
+                          else None}), flush=True)
+        time.sleep(float(sys.argv[1]))
+    """
+    env = clean_env(VTPU_METRICSD_PORT=str(port), **grant)
+    first = subprocess.Popen([sys.executable, "-c", textwrap.dedent(code),
+                              "30"], env=env, stdout=subprocess.PIPE,
+                             text=True)
+    try:
+        got = json.loads(first.stdout.readline())
+        assert got == {"grpc": True, "served": True, "port": port}
+        second = subprocess.run([sys.executable, "-c",
+                                 textwrap.dedent(code), "0"], env=env,
+                                capture_output=True, text=True, timeout=120)
+        assert last_json(second) == {"grpc": True, "served": False,
+                                     "port": None}
+    finally:
+        first.kill()
+        first.communicate()
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(code), "0"],
+                       env=clean_env(**grant), capture_output=True,
+                       text=True, timeout=120)
+    assert last_json(r) == {"grpc": False, "served": False, "port": None}
+
+
 # -- the python enforcement, against vtpu's device_put ------------------------
 
 SIZES = [16384, 4 << 20, 512 << 10, 600 << 10, 1000, 100 << 10, 350 << 10]

@@ -44,6 +44,10 @@ SCENARIOS = [
     # Launches on a per-thread default stream are metered and throttled;
     # their events stay one per (thread, context) and go with the thread.
     ("ptsz_meter", 0), ("ptsz_threads", 0),
+    # nvmlDeviceGetUtilizationRates: the pod's own device time over a
+    # window, of its share (and with no share), memory 0, no slot taken;
+    # forwarded unchanged with no quota env.
+    ("nvml_util", 0),
 ]
 
 

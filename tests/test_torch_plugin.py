@@ -156,13 +156,49 @@ FLAG_ENV = {"--enable-runtime": "VTPU_ENABLE_RUNTIME",
             "--monitor-mode": "VTPU_MONITOR_MODE"}
 
 
-@pytest.mark.parametrize("flag", ["--enable-runtime", "--enable-metricsd"])
+@pytest.mark.parametrize("flag", ["--enable-runtime"])
 def test_unported_flags_refuse(flag, monkeypatch):
     with pytest.raises(SystemExit, match="ROADMAP"):
         tconfig.parse_args([flag, "true"])
     monkeypatch.setenv(FLAG_ENV[flag], "true")
     with pytest.raises(SystemExit, match=flag):
         tconfig.parse_args([])
+
+
+def test_metricsd_flag_grants_its_port(tmp_path, monkeypatch):
+    """--enable-metricsd (or its env alias) starts the daemon, and each
+    grant carries VTPU_METRICSD_PORT as vtpu's does; vtpu's two libtpu
+    variables (the moved metrics service and metricsd's upstream on it)
+    are left out.  Without the flag no metricsd env is granted."""
+    host = stage(tmp_path)
+    jcfg = jconfig.parse_args([
+        "--discovery", "fake", "--device-split-count", "2",
+        "--metricsd-port", "9123", "--host-lib-dir", str(tmp_path / "jhost"),
+        "--runtime-socket", str(tmp_path / "no-broker.sock")])
+    backend = JFake(1, "v5e")
+    jplug = JPlugin(jsplit.build_plugin_specs(jcfg, backend)[0], jcfg,
+                    topology=backend.topology())
+    car = pb.ContainerAllocateResponse()
+    jplug._fill_allocate_response(car, jplug.spec.vdevices[:1],
+                                  [jplug.spec.vdevices[0].id])
+    jenv = dict(car.envs)
+    flags = ["--discovery", "fake", "--device-split-count", "2",
+             "--metricsd-port", "9123", "--host-lib-dir", host]
+    monkeypatch.setenv("VTPU_METRICSD_ENABLE", "true")
+    for cfg in (tconfig.parse_args(flags),
+                tconfig.parse_args(flags + ["--enable-metricsd", "true"])):
+        assert cfg.enable_metricsd and cfg.validate() == []
+        spec = tsplit.build_plugin_specs(cfg, FakeChipBackend(1))[0]
+        g = grant(cfg, spec, spec.vdevices[:1], [spec.vdevices[0].id])
+        assert g.envs["VTPU_METRICSD_PORT"] == jenv["VTPU_METRICSD_PORT"] \
+            == "9123"
+        assert {"TPU_RUNTIME_METRICS_PORTS", "VTPU_METRICSD_UPSTREAM"} \
+            <= set(jenv) - set(g.envs)
+    monkeypatch.delenv("VTPU_METRICSD_ENABLE")
+    cfg = tconfig.parse_args(flags)
+    spec = tsplit.build_plugin_specs(cfg, FakeChipBackend(1))[0]
+    assert not any("METRICS" in k for k in grant(
+        cfg, spec, spec.vdevices[:1], [spec.vdevices[0].id]).envs)
 
 
 @pytest.mark.parametrize("flag", ["--enable-legacy-preferred",
@@ -366,14 +402,13 @@ def test_mig_grants_share_no_busy_file(tmp_path):
 
 # -- the daemon, driven by the kubelet simulator, against vtpu's --------------
 
-# vtpu's Allocate env -> the port's: a new name, None (not emitted until
-# its subsystem is ported, or no H100 default), or the same name.
+# vtpu's Allocate env -> the port's: a new name, None (not emitted: a
+# libtpu variable, or no H100 default), or the same name.
 ENV_SUBSTITUTIONS = {
     "VTPU_VISIBLE_DEVICES": "NVIDIA_VISIBLE_DEVICES",
     "TPU_LIBRARY_PATH": None,            # the ld.so.preload mount instead
-    "VTPU_METRICSD_PORT": None,          # metricsd
-    "TPU_RUNTIME_METRICS_PORTS": None,
-    "VTPU_METRICSD_UPSTREAM": None,
+    "TPU_RUNTIME_METRICS_PORTS": None,   # libtpu's metrics service moved
+    "VTPU_METRICSD_UPSTREAM": None,      # ... and named metricsd's upstream
 }
 # vtpu's mounts, by container path -> the port's container path or None;
 # the others keep theirs.
@@ -458,8 +493,8 @@ def daemons(tmp_path, request):
     proc = subprocess.Popen(
         [sys.executable, "-m", "vtpu_torch.plugin.main", "--discovery",
          "fake", "--device-split-count", "4", "--device-plugin-path",
-         f"{tdir}/", "--host-lib-dir", thost], env=env,
-        stderr=subprocess.PIPE, text=True)
+         f"{tdir}/", "--host-lib-dir", thost, "--enable-metricsd", "true"],
+        env=env, stderr=subprocess.PIPE, text=True)
     jcfg = jconfig.parse_args([
         "--discovery", "fake", "--device-split-count", "4",
         "--device-plugin-path", f"{jdir}/", "--host-lib-dir", jhost,
@@ -627,7 +662,7 @@ def plugin_pair(tmp_path, split, chips, listers, controllers=(None, None)):
         jhost, "--runtime-socket", str(tmp_path / "no-broker.sock")])
     tcfg = tconfig.parse_args(common + [
         "--device-plugin-path", f"{tmp_path}/tkubelet/", "--host-lib-dir",
-        thost])
+        thost, "--enable-metricsd", "true"])     # on in vtpu by default
     tback = FakeChipBackend(chips)
     jback = JFake(chips, "v5e", hbm_bytes=tback.chips()[0].hbm_bytes)
     jplug = JPlugin(jsplit.build_plugin_specs(jcfg, jback)[0], jcfg,

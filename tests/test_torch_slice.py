@@ -187,7 +187,9 @@ def test_import_hygiene():
     assert "clean" in r.stdout
     assert len(mods) >= 19 and {
         "vtpu_torch.shim.interposer", "vtpu_torch.k8s.client",
-        "vtpu_torch.plugin.controller", *boot} <= set(mods)
+        "vtpu_torch.plugin.controller", "vtpu_torch.metricsd.server",
+        "vtpu_torch.tools.vtpu_smi", "vtpu_torch.tools.tpu_info",
+        "vtpu_torch.tools.metrics_server", *boot} <= set(mods)
 
     native = os.path.join(PORT, "native")
     sources = sorted(os.listdir(native))
