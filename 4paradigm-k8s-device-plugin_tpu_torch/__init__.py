@@ -12,10 +12,13 @@ into ``vtpu`` resources and answers the kubelet's Allocate with the env
 and mounts that put a tenant under the native interposer
 (``native/interposer.cc``).
 
+The broker (``runtime``) runs tenants that never open a card on
+``vtpu``'s wire, their programs ``torch.export`` graphs.
+
 The package imports torch and numpy (and, in ``proto`` and
-``plugin/server.py`` only, grpc); it keeps its own copies of what it
-needs from ``vtpu`` and shares nothing with it but the native region's
-C source.
+``plugin/server.py`` only, grpc; in ``runtime`` msgpack); it keeps its
+own copies of what it needs from ``vtpu`` and shares nothing with it but
+the native region's C source.
 """
 
 __version__ = "0.1.0"

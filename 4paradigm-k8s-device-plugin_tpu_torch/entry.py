@@ -17,12 +17,20 @@ sharded training dry-run.
 - ``train(cfg, batch, seq, steps, device)`` takes ``steps`` Adam steps
   (``transformer.make_train_step``) on one fixed [batch, seq+1] block,
   under the quota as ``serve`` is: weights admitted, steps gated.
+- ``serve_brokered(client, cfg, batch, seq, steps)`` is ``bench.py``'s
+  brokered transformer tenant: a process that never opens the card sends
+  its weights to a broker (``runtime.server``) as PUTs, or has the broker
+  make them with a no-argument init program, compiles the greedy step as
+  a ``torch.export`` graph (the weights are its arguments), and runs the
+  steps as broker-side chains of ``chain`` steps, ``depth`` chains in
+  flight.
 - ``dryrun_multichip(n, device)`` is the twin of
   ``__graft_entry__.dryrun_multichip``'s unbrokered half: one Adam step
   of the tiny model sharded over an n-device ('dp','tp') mesh.
 
-All run on the card unless the caller passes ``device="cpu"``; asking for
-CUDA on a machine without a card raises.
+All but ``serve_brokered`` run on the card unless the caller passes
+``device="cpu"``; asking for CUDA on a machine without a card raises.
+``serve_brokered`` runs where its broker runs.
 
     python -m vtpu_torch.entry --cfg llama3_8b --batch 2 --seq 512 --steps 4
     python -m vtpu_torch.entry --train --cfg bench --batch 4 --seq 512
@@ -31,6 +39,7 @@ CUDA on a machine without a card raises.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import time
@@ -40,9 +49,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .models.convert import init_module, params_from_numpy
-from .models.transformer import (TransformerConfig, make_train_step,
-                                 shard_params)
+from .models.convert import (_flatten, init_module, init_program,
+                             params_from_numpy, tensor_from_numpy)
+from .models.transformer import (TransformerConfig, functional_forward,
+                                 make_train_step, param_shapes, shard_params)
 from .ops.flash_attention import flash_attention
 from .parallel.mesh import make_mesh, run_group
 from .shim.pyshim import install_torch_enforcement, region_ledger
@@ -192,6 +202,116 @@ def train(cfg: Union[str, TransformerConfig] = "bench", batch: int = 4,
         "ledger": _ledger(enf, dev),
         "enforcer": enf,
         "model": model,
+    }
+
+
+def greedy_program(cfg: TransformerConfig):
+    """``fn(tokens, *weights) -> next tokens``: one greedy step."""
+    forward = functional_forward(cfg)
+
+    def fn(tokens, *weights):
+        return torch.argmax(forward(tokens, *weights), dim=-1).int()
+
+    return fn
+
+
+def serve_brokered(client,
+                   cfg: Union[str, TransformerConfig] = "bench",
+                   batch: int = 4, seq: int = 512, steps: int = 8,
+                   weights: Optional[Dict[str, Any]] = None, seed: int = 0,
+                   init: str = "program", chain: int = 4, depth: int = 2,
+                   seconds: Optional[float] = None,
+                   prompt: Optional[np.ndarray] = None,
+                   on_ready=None) -> Dict[str, Any]:
+    """Serve ``cfg`` greedily as the tenant of ``client`` (an open
+    ``runtime.client.RuntimeClient``, whose HELLO set the grant), on the
+    flash path (K1 runs in the broker).
+
+    Weights: ``weights`` (``vtpu``'s pytree, numpy arrays or CPU tensors)
+    as PUTs; else ``init="put"`` draws them here on the CPU from ``seed``
+    (``init_module``) and PUTs them; else the broker runs
+    ``init_program(cfg, seed)`` and they never cross the socket.  The
+    first block is ``prompt`` or zeros.  The steps run as chains of
+    ``chain`` steps (``repeats=chain``, ``carry=((0, 0),)``), ``depth``
+    in flight; ``seconds`` runs chains until that long has passed
+    instead of ``steps``.  ``on_ready()`` is called once the weights are
+    in place and the program compiled, before the first chain.  The
+    client stays open.  Returns the final tokens and those of the chain
+    before (None after one chain), the steps run, the steps per second
+    after the first chain, the device time booked to the tenant in that
+    window (``busy_us`` of STATS) beside the window, the tenant's STATS
+    row at the end, the weights' ids and the init program (None when
+    the weights were PUT)."""
+    cfg = dataclasses.replace(_config(cfg), use_flash=True)
+    names = [name for name, _, _ in param_shapes(cfg)]
+    init_exe = None
+    if weights is not None or init == "put":
+        if weights is None:
+            model = init_module(cfg, torch.Generator().manual_seed(seed),
+                                "cpu")
+            flat = dict(model.named_parameters())
+        else:
+            flat = _flatten(weights)
+        param_ids = [client.put(tensor_from_numpy(flat[n]), f"w.{n}").id
+                     for n in names]
+    else:
+        init_exe = client.compile(init_program(cfg, seed), [])
+        outs = init_exe()
+        param_ids = [h.id for h in outs]
+    start = np.zeros((batch, seq), np.int32) if prompt is None else prompt
+    client.put(torch.as_tensor(start, dtype=torch.int32), "tok0")
+    meta = [torch.empty((batch, seq), dtype=torch.int32, device="meta")]
+    meta += [torch.empty(shape, dtype=dtype, device="meta")
+             for _, shape, dtype in param_shapes(cfg)]
+    exe = client.compile(greedy_program(cfg), meta)
+    cur, nxt = "tok0", "tok1"
+    sent, timed, chains = 0, 0, collections.deque()
+
+    def send(k: int) -> None:
+        nonlocal cur, nxt, sent
+        client.execute_send_ids(exe.id, [cur] + param_ids, [nxt], repeats=k,
+                           carry=((0, 0),))
+        cur, nxt = nxt, cur
+        sent += k
+        chains.append(k)
+
+    def more(t0: float) -> bool:
+        if seconds is None:
+            return sent < steps
+        return time.monotonic() - t0 < seconds
+
+    if on_ready is not None:
+        on_ready()
+    # The first chain carries the program's first run, untimed.
+    send(chain if seconds is not None else min(chain, steps))
+    client.execute_recv()
+    chains.popleft()
+    busy0 = client.stats()[client.tenant]["busy_us"]
+    t0 = time.monotonic()
+    while True:
+        if more(t0) and len(chains) < depth:
+            send(chain if seconds is not None
+                 else min(chain, steps - sent))
+            continue
+        if not chains:
+            break
+        client.execute_recv()
+        timed += chains.popleft()
+    # STATS waits until the broker has metered every dispatched step.
+    stats = client.stats()[client.tenant]
+    window = time.monotonic() - t0
+    tokens = client.get(cur)
+    prev = client.get(nxt) if sent > chain else None
+    return {
+        "tokens": tokens,
+        "prev_tokens": prev,
+        "steps": sent,
+        "steps_per_s": timed / window if timed else float("nan"),
+        "booked_us": stats["busy_us"] - busy0,
+        "window_s": window,
+        "stats": stats,
+        "param_ids": param_ids,
+        "init_exe": init_exe,
     }
 
 

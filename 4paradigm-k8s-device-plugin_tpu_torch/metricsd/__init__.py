@@ -19,9 +19,9 @@ rule).  metricsd is what the node's Prometheus exporter
 (``tools/metrics_server.py --metricsd``) and ``vtpu-smi metricsd``
 scrape.  A CUDA node runs no runtime metrics service of its own, so
 there is nothing to pass other metrics on to: they answer NOT_FOUND.  The
-broker's ledger and SLO enrichment wait for the broker (ROADMAP Queue 1
-item 6); until then the SLO metrics answer with no values, as ``vtpu``'s
-do without a broker.
+broker's ledger and SLO enrichment wait for the broker's SLO plane
+(ROADMAP Queue 1 item 6(d)); until then the SLO metrics answer with no
+values, as ``vtpu``'s do without a broker.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ rescale, filter) live there, so every backend gets them.
   read.  It never takes a slot in the region (a ``SharedRegion`` opened
   with no limits adopts it as it is), so a probe changes nothing a
   tenant sees.  ``vtpu``'s enrichment from the broker's STATS and SLO
-  verbs waits for the broker (ROADMAP Queue 1 item 6): a
+  verbs waits for the broker's SLO plane (ROADMAP Queue 1 item 6(d)): a
   ``broker_socket`` is refused, not ignored, and ``slo_summary`` answers
   None, as ``vtpu``'s does without a broker socket.
 - ``FakeBackend``: a deterministic synthetic tenant for the CPU tests and
@@ -37,7 +37,8 @@ _RAW_HBM_FALLBACK = 81559 * 2**20
 MIN_WINDOW_S = 1.0 / 6.0
 
 BROKER_REFUSED = ("metricsd: the broker's ledger and SLO enrichment is not "
-                  "ported to the H100 yet (ROADMAP.md, Queue 1 item 6)")
+                  "ported to the H100 yet (ROADMAP.md, Queue 1 item 6(d), "
+                  "the SLO plane)")
 
 
 @dataclass

@@ -55,7 +55,7 @@ METRIC_HBM_TOTAL = "tpu.runtime.hbm.memory.total.bytes"
 METRIC_HBM_USAGE = "tpu.runtime.hbm.memory.usage.bytes"
 METRIC_DUTY_CYCLE = "tpu.runtime.tensorcore.dutycycle.percent"
 # The pod's own SLO, rescaled like the duty ("of MY objective"); no values
-# until the broker is ported (ROADMAP Queue 1 item 6).
+# until the broker's SLO plane is ported (ROADMAP Queue 1 item 6(d)).
 METRIC_SLO_ATTAINMENT = "vtpu.slo.attainment.percent"
 METRIC_SLO_P99 = "vtpu.slo.e2e.p99.microseconds"
 # metricsd's own gauges, on the same wire, so that the node's exporter
@@ -314,8 +314,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="the accounting region (default: the Allocate "
                          "env contract's)")
     ap.add_argument("--broker", default=None, metavar="SOCKET",
-                    help="refused: the broker is not ported yet (ROADMAP "
-                         "Queue 1 item 6)")
+                    help="refused: the broker's SLO plane is not ported "
+                         "yet (ROADMAP Queue 1 item 6(d))")
     ap.add_argument("--fake", action="store_true",
                     help="a synthetic tenant (CPU tests)")
     ap.add_argument("--selftest", action="store_true",

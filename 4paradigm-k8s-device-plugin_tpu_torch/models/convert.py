@@ -7,6 +7,11 @@ drawn anew, placed tensor by tensor on the caller's device.
 - ``init_module(cfg, generator, device)`` draws weights with the same
   shapes, scales and dtypes as ``init_params`` (norms f32, everything else
   ``cfg.dtype``) from a ``torch.Generator``; the numbers differ from JAX's.
+- ``init_program(cfg, seed)`` is a function of no argument that makes
+  weights of the same shapes, scales and dtypes from a counter hash of
+  ``seed``, in aten ops only: the broker runs it as a tenant's program, so
+  the weights are made on the card and never cross the socket (the
+  numbers differ from both of the above).
 - ``params_to_numpy(model)`` is the way back: the pytree's names and
   nesting, bf16 as numpy's ``bfloat16``, a sharded weight gathered whole.
 
@@ -38,9 +43,11 @@ def _flatten(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return flat
 
 
-def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
+def tensor_from_numpy(arr) -> torch.Tensor:
     """A CPU tensor with ``arr``'s bits; numpy's ``bfloat16`` extension
-    type maps to ``torch.bfloat16``."""
+    type maps to ``torch.bfloat16``.  A tensor is taken as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().contiguous()
     arr = np.ascontiguousarray(arr)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(
@@ -124,6 +131,41 @@ def init_module(cfg: TransformerConfig, generator: torch.Generator,
         return w.mul_(scale).to(dtype)
 
     return _fill(cfg, device, enforcer, make, trainable)
+
+
+def _hash_uniform(n: int, salt: int, device) -> torch.Tensor:
+    """n floats uniform in [-0.5, 0.5) from a counter hash (a 32-bit
+    integer mix of index and salt), with no generator state."""
+    m = 0xFFFFFFFF
+    h = (torch.arange(n, dtype=torch.int64, device=device)
+         * 0x9E3779B1 + salt) & m
+    h = ((h ^ (h >> 16)) * 0x45D9F3B) & m
+    h = ((h ^ (h >> 16)) * 0x45D9F3B) & m
+    h = h ^ (h >> 16)
+    return (h & 0xFFFFFF).to(torch.float32) * 2.0 ** -24 - 0.5
+
+
+def init_program(cfg: TransformerConfig, seed: int = 0,
+                 device="meta") -> Callable[[], Tuple[torch.Tensor, ...]]:
+    """A function of no argument returning every weight in
+    ``param_shapes`` order: norms ones, the rest uniform with
+    ``init_module``'s standard deviation (embed dim^-1/2, dense weights
+    fan_in^-1/2), drawn from a hash of ``seed`` and the weight's index.
+    Traced on ``device`` ("meta": nothing is allocated)."""
+
+    def fn():
+        out = []
+        for i, (name, shape, dtype) in enumerate(param_shapes(cfg)):
+            leaf = name.rpartition(".")[2]
+            if leaf.endswith("norm"):
+                out.append(torch.ones(shape, dtype=dtype, device=device))
+                continue
+            scale = cfg.dim ** -0.5 if leaf == "embed" else shape[0] ** -0.5
+            u = _hash_uniform(math.prod(shape), seed * 1000003 + i, device)
+            out.append((u * (scale * 12 ** 0.5)).reshape(shape).to(dtype))
+        return tuple(out)
+
+    return fn
 
 
 def params_to_numpy(model: Transformer) -> Dict[str, Any]:

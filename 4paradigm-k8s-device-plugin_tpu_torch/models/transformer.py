@@ -273,6 +273,21 @@ class Transformer(nn.Module):
         return (x @ self.lm_head).float()
 
 
+def functional_forward(cfg: TransformerConfig
+                       ) -> Callable[..., torch.Tensor]:
+    """``fn(tokens, *weights) -> logits``: the forward with every weight an
+    argument, in ``param_shapes`` order, for a program that holds no
+    tensor of its own (``runtime.client.export_graph``)."""
+    model = Transformer(cfg)
+    names = [name for name, _, _ in param_shapes(cfg)]
+
+    def fn(tokens: torch.Tensor, *weights: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(model, dict(zip(names, weights)),
+                                          (tokens,))
+
+    return fn
+
+
 def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token cross-entropy over the shifted sequence: the mean, over
     every position, of -log softmax(logits) at the next token (f32).

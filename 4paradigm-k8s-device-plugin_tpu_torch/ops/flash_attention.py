@@ -6,9 +6,14 @@ and layouts: ``flash_attention`` on [batch·heads, seq, head_dim] with K/V
 already repeated per head, and ``attention_bshd`` on the model's
 [batch, seq, heads, head_dim].
 
-Dispatch follows the tensors: CPU tensors go to ``flash_attention_ref``,
-CUDA tensors to one of two hand-written kernels, chosen by
-``kernel_route`` from the dtype and head_dim alone:
+Both wrappers call the registered op ``torch.ops.vtpu_torch.flash_attention``
+(q, k, v, causal), so a graph that ``torch.export`` traces carries the
+op as a node and the device that runs the graph picks its implementation
+(the broker's COMPILE, ``runtime/server.py``): the CPU one is
+``flash_attention_ref``, the CUDA one ``_launch``, the fake one an empty
+tensor like q.  Dispatch follows the tensors: CPU tensors go to
+``flash_attention_ref``, CUDA tensors to one of two hand-written kernels,
+chosen by ``kernel_route`` from the dtype and head_dim alone:
 
 - ``"sm90"``, ``csrc/flash_attention_sm90.cu``: bf16 at head_dim 64 and
   128 (the serving path), TMA-fed wgmma with the softmax and the output
@@ -21,7 +26,10 @@ a failed build or launch; nothing falls back to the plain version or to
 the other kernel.  The kernels have no backward (the JAX package's has
 none either), so a CUDA call that autograd would record (grad mode on, and
 q, k or v requiring grad) raises too: its result would carry no gradient.
-The CPU route stays differentiable.  Every launch adds one to
+The CPU route stays differentiable (the op's autograd formula is the
+plain version's gradient, which only the CPU route reaches).  Tensors on
+any other device (``meta`` outside tracing) go straight to ``_launch``,
+which refuses them.  Every launch adds one to
 ``flash_attention.launches`` and one to its route's entry in
 ``flash_attention.route_launches``.
 """
@@ -97,17 +105,21 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"{HEAD_DIMS}")
 
 
+def _refuse_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the CUDA kernel has no backward "
+                           "and would drop the gradients of q, k and v; "
+                           "train with use_flash=False (the plain "
+                           "attention), or call it under torch.no_grad()")
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, route: str | None = None) -> torch.Tensor:
     """Launch the kernel of ``kernel_route`` on CUDA tensors, or the one
     ``route`` names (chip_smoke.py times the wmma kernel at the serving
     shapes so)."""
     _check(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_attention: the CUDA kernel has no backward "
-                           "and would drop the gradients of q, k and v; "
-                           "train with use_flash=False (the plain "
-                           "attention), or call it under torch.no_grad()")
+    _refuse_grad(q, k, v)
     bh, s, d = q.shape
     route = route or kernel_route(q.dtype, d)
     out = torch.empty_like(q)
@@ -127,15 +139,59 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@torch.library.custom_op("vtpu_torch::flash_attention", mutates_args=())
+def _op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        causal: bool) -> torch.Tensor:
+    raise RuntimeError(f"flash_attention: no implementation for {q.device}")
+
+
+@_op.register_kernel("cpu")
+def _op_cpu(q, k, v, causal):
+    return flash_attention_ref(q, k, v, causal)
+
+
+@_op.register_kernel("cuda")
+def _op_cuda(q, k, v, causal):
+    return _launch(q, k, v, causal)
+
+
+@_op.register_fake
+def _op_fake(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+def _op_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:3])
+    ctx.causal = inputs[3]
+
+
+def _op_backward(ctx, grad):
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        out = flash_attention_ref(*qkv, ctx.causal)
+        return (*torch.autograd.grad(out, qkv, grad), None)
+
+
+_op.register_autograd(_op_backward, setup_context=_op_setup)
+
+
+def _traced(t: torch.Tensor) -> bool:
+    return torch.compiler.is_compiling() or isinstance(
+        t, torch._subclasses.fake_tensor.FakeTensor)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, block_q: int = 128) -> torch.Tensor:
     """Fused attention over [bh, s, d] tensors (kv already head-repeated);
     returns [bh, s, d] in ``q.dtype``.  ``block_q`` is kept for signature
     parity with ``vtpu``; it does not change the result."""
     del block_q
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_ref(q, k, v, causal)
-    return _launch(q, k, v, causal)
+    devices = {t.device.type for t in (q, k, v)}
+    if "cuda" in devices:
+        _refuse_grad(q, k, v)
+    if _traced(q) or devices <= {"cpu", "cuda"}:
+        return _op(q, k, v, causal)
+    return _launch(q, k, v, causal)  # raises: the kernel takes CUDA tensors
 
 
 flash_attention.launches = 0

@@ -2,9 +2,11 @@
 up front — the reference's urfave/cli surface (reference main.go:55-161),
 with ``vtpu``'s flags and env aliases.
 
-``--enable-runtime`` turns on the broker, which is not ported to the
-H100 yet: it is refused with an error when turned on, never ignored
-(ROADMAP.md, Queue 1 item 6).  ``--enable-metricsd`` gives each grant
+``--enable-runtime`` turns on the broker in every grant (the runtime
+socket and the in-container bridge).  The broker's core is ported
+(``runtime/``), but a grant waits for the transparent bridge: the flag is
+refused with an error when turned on, never ignored (ROADMAP.md, Queue 1
+item 6(e)).  ``--enable-metricsd`` gives each grant
 metricsd's port (``plugin/grant.py``).  ``vtpu`` turns both on by
 default; here they default off (on a CUDA node the stock tool,
 nvidia-smi, reads NVML, which the interposer answers; metricsd is for
@@ -39,9 +41,11 @@ DEVICE_ID_STRATEGIES = ("uuid", "index")
 # cards first; spread = farthest apart, emptiest cards first.
 ALLOCATION_POLICIES = ("pack", "spread")
 
-# Flags whose subsystem is not ported: flag -> what is missing.
+# Flags whose subsystem is not ported: attribute -> (flag, what is
+# missing, the ROADMAP Queue 1 item that holds it).
 UNPORTED = {
-    "enable_runtime": ("--enable-runtime", "the runtime broker"),
+    "enable_runtime": ("--enable-runtime", "the runtime broker's grant",
+                       "6(e)"),
 }
 
 
@@ -98,10 +102,11 @@ class Config:
             errors.append(f"invalid --discovery {self.discovery!r}")
         if not 0 < self.metricsd_port < 65536:
             errors.append("--metricsd-port must be in 1..65535")
-        for attr, (flag, what) in UNPORTED.items():
+        for attr, (flag, what, item) in UNPORTED.items():
             if getattr(self, attr):
                 errors.append(f"{flag}: {what} is not ported to the H100 "
-                              "yet (ROADMAP.md, Queue 1); turn it off")
+                              f"yet (ROADMAP.md, Queue 1 item {item}); turn "
+                              "it off")
         return errors
 
     @property

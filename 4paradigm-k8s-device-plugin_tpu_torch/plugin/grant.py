@@ -65,8 +65,8 @@ interposer:
   (``VTPU_METRICSD_UPSTREAM``): a CUDA node runs no such service, so
   neither is emitted.
 
-Not emitted until the broker is ported (ROADMAP.md, Queue 1 item 6): the
-runtime socket.  Never emitted on the H100: the env-override marker of
+Not emitted until the grant's broker half is ported (ROADMAP.md, Queue 1
+item 6(e), the bridge): the runtime socket.  Never emitted on the H100: the env-override marker of
 the PJRT preload library.
 """
 

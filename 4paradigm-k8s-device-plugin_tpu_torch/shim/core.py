@@ -7,10 +7,13 @@ tracking, and the device-time token bucket.  Its semantics live in
 source at first use (``ops/_build.py``), so a region written by this port
 is the same region ``vtpu``'s tools read.
 
-This is the subset of ``vtpu.shim.core`` that in-process enforcement
-and the views (``metricsd``, ``tools``) need: ``SharedRegion`` and
-``RateLease``.  A ``SharedRegion`` opened with no limits adopts the region
-as it is and takes no slot in it: every view opens it so.
+This is the subset of ``vtpu.shim.core`` that in-process enforcement,
+the views (``metricsd``, ``tools``) and the broker (``runtime``)
+need: ``SharedRegion`` and ``RateLease``.  The broker's region is one
+card's: its device axis is the card's tenant slots, each seeded with its
+tenant's grant (``set_mem_limit``, ``set_core_limit``, ``reset_slot``).
+A ``SharedRegion`` opened with no limits adopts the region as it is and
+takes no slot in it: every view opens it so.
 """
 
 from __future__ import annotations
@@ -90,6 +93,12 @@ def load() -> ctypes.CDLL:
         lib.vtpu_rate_adjust.argtypes = [vp, i, ctypes.c_int64]
         lib.vtpu_rate_block.argtypes = [vp, i, u64, i]
         lib.vtpu_busy_add.argtypes = [vp, i, u64]
+        lib.vtpu_set_core_limit.argtypes = [vp, i, i32]
+        lib.vtpu_region_set_wc.argtypes = [vp, i]
+        lib.vtpu_set_mem_limit.argtypes = [vp, i, u64]
+        lib.vtpu_reset_slot.argtypes = [vp, i]
+        lib.vtpu_rate_level.restype = ctypes.c_int64
+        lib.vtpu_rate_level.argtypes = [vp, i]
         lib.vtpu_region_ndevices.restype = i
         lib.vtpu_region_ndevices.argtypes = [vp]
         lib.vtpu_region_active_procs.restype = i
@@ -186,6 +195,28 @@ class SharedRegion:
     def busy_add(self, dev: int, us: int) -> None:
         """Record completed device time (duty-cycle source)."""
         self.lib.vtpu_busy_add(self.handle, dev, int(us))
+
+    def set_core_limit(self, dev: int, pct: int) -> None:
+        """Re-seed one slot's compute share (broker per-grant shares)."""
+        self.lib.vtpu_set_core_limit(self.handle, dev, int(pct))
+
+    def set_work_conserving(self, on: bool) -> None:
+        """Idle-share redistribution across device entries: broker
+        regions only, whose entries are the tenant slots of one card
+        (vtpu_core.h)."""
+        self.lib.vtpu_region_set_wc(self.handle, 1 if on else 0)
+
+    def set_mem_limit(self, dev: int, limit_bytes: int) -> None:
+        """Re-seed one slot's HBM cap (broker per-grant quotas)."""
+        self.lib.vtpu_set_mem_limit(self.handle, dev, int(limit_bytes))
+
+    def reset_slot(self, dev: int) -> None:
+        """Reset a recycled tenant slot's bucket and burst state."""
+        self.lib.vtpu_reset_slot(self.handle, dev)
+
+    def rate_level(self, dev: int) -> int:
+        """The token bucket's level in µs (negative: borrowed)."""
+        return int(self.lib.vtpu_rate_level(self.handle, dev))
 
     @property
     def ndevices(self) -> int:

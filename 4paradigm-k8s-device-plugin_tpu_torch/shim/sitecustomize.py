@@ -98,8 +98,8 @@ def _main():
         print("[vtpu shim] VTPU_FORCE_PY_ENFORCEMENT ignored: the "
               "interposer enforces this quota, and the python enforcement "
               "beside it would charge every byte twice", file=sys.stderr)
-    # vtpu's broker bridge (VTPU_RUNTIME_SOCKET) waits for the broker,
-    # ROADMAP Queue 1 item 6.
+    # vtpu's broker bridge (VTPU_RUNTIME_SOCKET) waits for ROADMAP Queue 1
+    # item 6(e).
     try:
         pyshim.install_py_enforcement()
     except Exception as e:  # noqa: BLE001 - the program starts regardless

@@ -14,7 +14,8 @@ shared directories) as
 
 It reads the regions only; it takes no slot.  ``--broker`` and
 ``--cluster`` (the broker's per-tenant gauges and the federation's) wait
-for the broker, ROADMAP Queue 1 item 6, and are refused.
+for the broker's SLO plane and federation, ROADMAP Queue 1 item 6(d), and
+are refused.
 """
 
 from __future__ import annotations
@@ -277,8 +278,8 @@ def make_server(port: int, scan: Optional[str] = None,
     return srv
 
 
-REFUSED = ("is not ported to the H100 yet: the broker and its federation "
-           "(ROADMAP.md, Queue 1 item 6)")
+REFUSED = ("is not ported to the H100 yet: the broker's SLO plane and its "
+           "federation (ROADMAP.md, Queue 1 item 6(d))")
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -12,9 +12,10 @@ pod's region.  It never takes a slot in a region.
   vtpu-smi --sweep-host                      # free dead host pids' slots
   vtpu-smi metricsd [HOST:PORT]              # what a pod's metricsd says
 
-The broker's sub-commands (``trace``, ``leases``, ``top``, ``cluster``)
-and admin flags (``--broker`` and its verbs) wait for the broker, ROADMAP
-Queue 1 item 6; the analyzers (``analyze``, ``mc``, ``wmm``, ``dmc``,
+The broker's sub-commands wait for their modules: ``trace`` and
+``leases`` for ROADMAP Queue 1 item 6(b), ``top`` and ``cluster`` for
+6(d); so do its admin flags (``--broker`` and its verbs, with DRAIN and
+HANDOVER), for 6(b); the analyzers (``analyze``, ``mc``, ``wmm``, ``dmc``,
 ``chaos``) for item 7.  Each is refused with a message that names its
 item, never silently absent.
 
@@ -37,8 +38,9 @@ TITLE = "| vtpu-smi — vGPU quota monitor"
 
 # Sub-commands of vtpu's that are not ported yet: name -> ROADMAP Queue 1
 # item.
-REFUSED_COMMANDS = {"trace": 6, "leases": 6, "top": 6, "cluster": 6,
-                    "analyze": 7, "mc": 7, "wmm": 7, "dmc": 7, "chaos": 7}
+REFUSED_COMMANDS = {"trace": "6(b)", "leases": "6(b)", "top": "6(d)",
+                    "cluster": "6(d)", "analyze": "7", "mc": "7", "wmm": "7",
+                    "dmc": "7", "chaos": "7"}
 # The broker's admin surface: flags with a value, and switches.
 BROKER_FLAGS = ("--broker", "--suspend", "--resume", "--resize", "--hbm",
                 "--core", "--migrate", "--device", "--migrate-to", "--chips")
@@ -46,7 +48,7 @@ BROKER_SWITCHES = ("--repl-status", "--broker-stats", "--drain",
                    "--handover", "--shutdown")
 
 
-def refusal(what: str, item: int) -> str:
+def refusal(what: str, item: str) -> str:
     return (f"vtpu-smi: {what} is not ported to the H100 yet (ROADMAP.md, "
             f"Queue 1 item {item})")
 
@@ -238,7 +240,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     given = [f for f in BROKER_FLAGS + BROKER_SWITCHES
              if getattr(ns, f[2:].replace("-", "_"))]
     if given:
-        print(refusal(", ".join(given) + " (the broker's admin surface)", 6),
+        print(refusal(", ".join(given) + " (the broker's admin surface)",
+                      "6(b)"),
               file=sys.stderr)
         return 2
     if ns.cmd == "metricsd":

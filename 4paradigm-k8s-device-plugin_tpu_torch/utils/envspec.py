@@ -115,8 +115,8 @@ ALL_ENV_VARS = [
 # and every one Allocate sets, by the layer that reads it: "contract"
 # (set by Allocate, read in the container), "daemon", "shim" (the
 # in-container bootstrap and enforcement), "tools" (metricsd and the
-# views under ``tools/``), "k8s" (the in-cluster API client), "build"
-# (``ops/_build.py``).  ``vtpu``'s registry
+# views under ``tools/``), "k8s" (the in-cluster API client), "broker"
+# (``runtime/``), "build" (``ops/_build.py``).  ``vtpu``'s registry
 # (``utils/envspec.py``) with the port's own keys; no TPU-only key.
 # ``tests/test_torch_bootstrap.py`` walks the sources and holds every
 # read to it.
@@ -189,6 +189,19 @@ ENV_FLAGS = {
     # The in-cluster API client (k8s/client.py).
     "KUBERNETES_SERVICE_HOST": "k8s",
     "KUBERNETES_SERVICE_PORT": "k8s",
+    # The broker (runtime/): its wire, its scheduler and its client;
+    # VTPU_JOURNAL_DIR and VTPU_TRACE are read to be refused until their
+    # modules are ported (ROADMAP Queue 1 item 6(b)).
+    "VTPU_PUT_CHUNK_BYTES": "broker",
+    "VTPU_RECV_POOL_MB": "broker",
+    "VTPU_MAX_QUEUE_US": "broker",
+    "VTPU_WAKE_BATCH": "broker",
+    "VTPU_WORK_CONSERVING": "broker",
+    "VTPU_JOURNAL_DIR": "broker",
+    "VTPU_TRACE": "broker",
+    "VTPU_EXEC_BATCH": "broker",
+    "VTPU_TENANT": "broker",
+    "VTPU_RPC_TIMEOUT_S": "broker",
     # The native build.
     "CUDA_HOME": "build",
 }

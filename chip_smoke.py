@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs eleven phases, each of which asserts; any failure exits
+then runs twelve phases, each of which asserts; any failure exits
 non-zero and prints no result line.
 
-1. Device: the card's name and power limit, the versions, the build (the
-   CUDA kernels, the region, the interposer and its test programs).
+1. Device: the card's name and power limit, the versions (msgpack and
+   ml_dtypes looked up, not imported), the build (the CUDA kernels, the
+   region, the interposer and its test programs).
    Fails if ptxas reports a spill in the Hopper attention kernel, or if
    the interposer's ABI header disagrees with the toolkit's cuda.h and
    nvml.h (native/abi_check.cc, compiled only).
@@ -106,8 +107,27 @@ non-zero and prints no result line.
    10's.  Phase 11 alone: ``python3 -c "import chip_smoke, tempfile,
    torch; chip_smoke.phase_device(torch); chip_smoke.phase_views(torch,
    tempfile.mkdtemp())"``.
+12. The broker (``vtpu_torch.runtime.server``) in this process, its
+   tenants as children started with ``CUDA_VISIBLE_DEVICES`` empty, which
+   never initialise CUDA.  12a: the bench config at b=4, s=512, weights
+   drawn on the CPU from a seed and sent as PUTs, 8 greedy steps as two
+   chains of 4; the broker launches K1 exactly 16 times, all on the sm90
+   route; the logits of the first step within ``LOGITS_REL_L2`` of
+   in-process ``entry.serve`` with the same weights, and the tokens after
+   steps 4 and 8 equal on at least 99.9% of positions.  12b: Llama-3-8B
+   at full width, b=2, s=512, from the broker's init program under a
+   20 GiB cap given in HELLO: 32 launches a step, a second init refused
+   with RESOURCE_EXHAUSTED and the ledger unmoved, 0 after the tenant
+   exits; its rate beside phase 3's.  12c: the bench config at 50%
+   shares given in HELLO, one tenant alone and two at once for 8 s each:
+   each of the pair books 0.40-0.60 of its window, and the tenant alone
+   (a sole demander, ungated in the work-conserving region) runs faster
+   and books more of its window than each of the pair.  Phase 12 alone: ``python3 -c "import chip_smoke, tempfile,
+   torch; chip_smoke.phase_device(torch); chip_smoke.phase_broker(torch,
+   tempfile.mkdtemp(), {'serve': float('nan')})"``.
 
-The line before the last is one JSON object with each kernel's numbers;
+The line before the last is one JSON object with each kernel's numbers
+(``launches`` from phase 3, ``brokered_launches`` from phase 12);
 the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -124,6 +144,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -198,6 +220,18 @@ def phase_device(torch):
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"capability {torch.cuda.get_device_capability(0)}")
+    # The broker's wire needs msgpack; ml_dtypes is looked up, never
+    # imported (the port carries bf16 as torch's bytes).
+    from importlib import metadata
+    wire = {}
+    for pkg in ("msgpack", "ml_dtypes"):
+        try:
+            wire[pkg] = metadata.version(pkg)
+        except metadata.PackageNotFoundError:
+            wire[pkg] = None
+    say(f"wire: msgpack {wire['msgpack']}, ml_dtypes {wire['ml_dtypes']} "
+        "(not imported)")
+    check(wire["msgpack"] is not None, "msgpack is not installed")
     from vtpu_torch.ops import _build
     from vtpu_torch.ops import flash_attention as fa
 
@@ -2300,15 +2334,323 @@ def phase_views(torch, tmp, host=None, pods_rates=None):
     return got
 
 
+# -- phase 12: the broker ---------------------------------------------------
+
+BROKER_SEED = 12
+BROKER_SHAPE = (4, 512)    # bench.py's batch and sequence
+BROKER_STEPS = 8           # two chains of BROKER_CHAIN
+BROKER_CHAIN = 4
+TOKEN_AGREEMENT = 0.999    # share of token positions equal to in-process
+FULL_SHAPE = (2, 512)      # phase 3's batch and sequence
+FULL_STEPS = 16
+FULL_CAP = 20 * 2**30      # phase 3's cap, given in HELLO
+SHARE_S = 8.0              # each 12c tenant's timed window
+SHARE_CORE = 50
+# 12c's band on what each of two 50% tenants books of its window, set
+# after runs agreed (PERF.md, runs AA-AD: 0.486-0.501); the bucket's
+# 400 ms burst is 0.05 of an 8 s window.  The tenant alone, a sole
+# demander in the work-conserving region, runs ungated: it must run
+# faster and book more of its window than each of the pair.  Its own
+# reading depends on the host: the dispatcher's Python bounded it at 0.84
+# of the window on a slow host (run AD) and not at all on others (1.00).
+SHARE_PAIR_BAND = (0.40, 0.60)
+
+
+def broker_prompt(cfg):
+    return np.random.default_rng(BROKER_SEED).integers(
+        0, cfg.vocab, BROKER_SHAPE, dtype=np.int32)
+
+
+def brokered_child(torch, torch_maps, go, mode, sock, out_dir):
+    """Phase 12, inside one tenant that never opens the card (started with
+    CUDA_VISIBLE_DEVICES empty): ``parity`` serves the bench config from
+    the parent's weights (``out_dir``/parity_weights.pt) as PUTs, reports
+    READY, then runs the logits program on the prompt once the go file
+    appears; ``full`` serves Llama-3-8B from the broker's init program
+    under a 20 GiB cap and runs that program again, which must be
+    refused; ``share`` serves the bench config for SHARE_S at a 50%
+    share, released by the go file.  The tenant reads which libcuda its
+    process maps after ``import torch`` (``torch_maps``), after the
+    port's imports and at the end, and checks that it never initialised
+    CUDA and that torch sees no card."""
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.runtime.client import RuntimeClient, VtpuQuotaError
+
+    res = {"pid": os.getpid(), "libcuda_after_torch": torch_maps,
+           "libcuda_after_port": libcuda_maps()}
+
+    check(os.environ.get("CUDA_VISIBLE_DEVICES") == "",
+          "the tenant was started with a card visible")
+
+    def released():
+        print("READY", flush=True)
+        while not os.path.exists(go):
+            time.sleep(0.005)
+
+    if mode == "parity":
+        cfg = tr.TransformerConfig.bench()
+        c = RuntimeClient(sock, tenant="parity")
+        prompt = broker_prompt(cfg)
+        t0 = time.monotonic()
+        # Read into memory: PUTs sent from a file mapping measured about
+        # ten times slower (PERF.md, run AG).
+        weights = torch.load(os.path.join(out_dir, "parity_weights.pt"),
+                             weights_only=True)
+        t1 = time.monotonic()
+        out = entry.serve_brokered(
+            c, cfg, *BROKER_SHAPE, steps=BROKER_STEPS, weights=weights,
+            chain=BROKER_CHAIN, depth=2, prompt=prompt)
+        res.update(load_s=t1 - t0, serve_s=time.monotonic() - t1)
+        released()
+        t0 = time.monotonic()
+        c.put(torch.from_numpy(prompt), "prompt")
+        meta = [torch.empty(BROKER_SHAPE, dtype=torch.int32,
+                            device="meta")] + [
+            torch.empty(shape, dtype=dtype, device="meta")
+            for _, shape, dtype in tr.param_shapes(
+                dataclasses.replace(cfg, use_flash=True))]
+        exe = c.compile(tr.functional_forward(
+            dataclasses.replace(cfg, use_flash=True)), meta)
+        c.execute_send_ids(exe.id, ["prompt"] + out["param_ids"],
+                           ["logits"])
+        c.execute_recv()
+        np.savez(os.path.join(out_dir, "parity.npz"),
+                 tokens4=out["prev_tokens"].numpy(),
+                 tokens8=out["tokens"].numpy(),
+                 logits=c.get("logits").numpy())
+        res.update(steps=out["steps"], stats=out["stats"],
+                   logits_s=time.monotonic() - t0)
+        c.close()
+    elif mode == "full":
+        released()
+        cfg = tr.TransformerConfig.llama3_8b()
+        c = RuntimeClient(sock, tenant="full", hbm_limit=FULL_CAP,
+                          core_limit=100)
+        t0 = time.monotonic()
+        out = entry.serve_brokered(
+            c, cfg, *FULL_SHAPE, steps=FULL_STEPS, init="program",
+            seed=BROKER_SEED, chain=BROKER_CHAIN, depth=2)
+        res.update(wall_s=time.monotonic() - t0, steps=out["steps"],
+                   steps_per_s=out["steps_per_s"], stats=out["stats"],
+                   tokens_ok=bool(out["tokens"].shape == FULL_SHAPE
+                                  and int(out["tokens"].min()) >= 0
+                                  and int(out["tokens"].max()) < cfg.vocab))
+        before = c.stats()["full"]["used_bytes"]
+        try:
+            out["init_exe"]()
+            res["second_init"] = "admitted"
+        except VtpuQuotaError as e:
+            res["second_init"] = str(e)
+        res["ledger_before"] = before
+        res["ledger_after"] = c.stats()["full"]["used_bytes"]
+        c.close()
+    else:
+        c = RuntimeClient(sock, tenant=f"share-{os.getpid()}",
+                          core_limit=SHARE_CORE)
+        out = entry.serve_brokered(
+            c, "bench", *BROKER_SHAPE, init="program", seed=BROKER_SEED,
+            chain=BROKER_CHAIN, depth=2, seconds=SHARE_S, on_ready=released)
+        c.close()
+        res.update(steps_per_s=out["steps_per_s"], booked_us=out["booked_us"],
+                   window_s=out["window_s"], steps=out["steps"],
+                   core=out["stats"]["core_limit_pct"])
+    # A CUDA build of torch may map libcuda when it is imported (the
+    # three readings say which step maps it), so what the tenant must
+    # never do is initialise CUDA: no context, no device, before torch is
+    # asked for a card.
+    res["libcuda_mapped"] = libcuda_maps()
+    res["cuda_initialized"] = torch.cuda.is_initialized()
+    check(not res["cuda_initialized"], "the tenant initialised CUDA")
+    check(not torch.cuda.is_available(), "the tenant sees a card")
+    return res
+
+
+def libcuda_maps():
+    """The libcuda files this process maps."""
+    with open("/proc/self/maps") as f:
+        return sorted({ln.split()[-1] for ln in f if "libcuda.so" in ln})
+
+
+def broker_ledger(state):
+    """Bytes charged in every tenant slot of the broker's card."""
+    region = state.chips[0].region
+    return sum(int(region.device_stats(i).used_bytes)
+               for i in range(state.chips[0].region.ndevices))
+
+
+def phase_broker(torch, tmp, direct):
+    import threading
+
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.models.convert import init_program
+    from vtpu_torch.ops import flash_attention as fa
+    from vtpu_torch.runtime import server as rs
+
+    sock = os.path.join(tmp, "broker.sock")
+    srv = rs.make_server(sock, hbm_limit=0, core_limit=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True,
+                          kwargs={"poll_interval": 0.1})
+    th.start()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    launches = {}
+
+    def reset():
+        fa.flash_attention.launches = 0
+        fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+
+    try:
+        # 12a: parity with in-process serving, same weights and prompt.
+        t0 = time.monotonic()
+        # The port's seed init (init_program) draws them on the card;
+        # the tenant PUTs the same bytes from a file.
+        cfg = dataclasses.replace(tr.TransformerConfig.bench(),
+                                  use_flash=True)
+        with torch.inference_mode():
+            drawn = init_program(cfg, BROKER_SEED, device="cuda")()
+        tree = {"layers": [{} for _ in range(cfg.n_layers)]}
+        for (name, _, _), w in zip(tr.param_shapes(cfg), drawn):
+            path = name.split(".")
+            if path[0] == "layers":
+                tree["layers"][int(path[1])][path[2]] = w.cpu()
+            else:
+                tree[name] = w.cpu()
+        torch.save(tree, os.path.join(tmp, "parity_weights.pt"))
+        prompt = broker_prompt(cfg)
+        ref = entry.serve(cfg, *BROKER_SHAPE, steps=BROKER_CHAIN,
+                          device="cuda", weights=tree, prompt=prompt)
+        ref4 = ref["tokens"]
+        with torch.inference_mode():
+            m = ref["model"]
+            t = ref4.cuda()
+            for _ in range(BROKER_STEPS - BROKER_CHAIN):
+                t = torch.argmax(m(t), dim=-1).int()
+            ref8 = t.cpu()
+            ref_logits = m(torch.from_numpy(prompt).cuda()).float().cpu()
+        del drawn, tree, ref, m, t
+        gc.collect()
+        torch.cuda.empty_cache()
+        prep_s = time.monotonic() - t0
+
+        def count():
+            launches["parity"] = dict(fa.flash_attention.route_launches)
+            launches["parity_total"] = fa.flash_attention.launches
+
+        reset()
+        t0 = time.monotonic()
+        par = run_released([env], "brokered", tmp, "b_parity", on_ready=count,
+                           args=[("parity", sock, tmp)])[0]
+        got = np.load(os.path.join(tmp, "parity.npz"))
+        steps_l = BROKER_STEPS * cfg.n_layers
+        say(f"12a parity (bench b=4 s=512, PUT weights, 2 chains of 4): "
+            f"{prep_s:.1f} s to draw, save and serve in process; the tenant "
+            f"{time.monotonic() - t0:.1f} s (load {par['load_s']:.1f} s, "
+            f"PUT, compile and 8 steps {par['serve_s']:.1f} s, logits "
+            f"{par['logits_s']:.1f} s); broker launches "
+            f"{json.dumps(launches['parity'])}; the tenant initialised "
+            f"CUDA: {par['cuda_initialized']}; libcuda it maps after "
+            f"import torch: {par['libcuda_after_torch']}, after the port's "
+            f"imports: {par['libcuda_after_port']}, at the end: "
+            f"{par['libcuda_mapped']}")
+        check(launches["parity_total"] == steps_l
+              and launches["parity"]["sm90"] == steps_l,
+              f"brokered launches {launches['parity']} != {steps_l} sm90")
+        logits = torch.from_numpy(got["logits"])
+        rel = ((logits - ref_logits).norm() / ref_logits.norm()).item()
+        same = sum(int((torch.from_numpy(got[k]) == r).sum())
+                   for k, r in (("tokens4", ref4), ("tokens8", ref8)))
+        total = 2 * ref8.numel()
+        say(f"12a logits brokered vs in-process: rel L2 {rel:.3g} (tol "
+            f"{LOGITS_REL_L2}); tokens after steps 4 and 8 equal at "
+            f"{same} of {total} positions")
+        check(torch.isfinite(logits).all().item() and rel < LOGITS_REL_L2,
+              f"brokered logits disagree with in-process serving: {rel}")
+        check(same >= TOKEN_AGREEMENT * total,
+              f"brokered tokens agree at {same} of {total} positions")
+        check(par["stats"]["executions"] == BROKER_STEPS,
+              f"broker counted {par['stats']['executions']} steps")
+
+        # 12b: Llama-3-8B at full width from the broker's init program.
+        reset()
+        full = run_released([env], "brokered", tmp, "b_full",
+                            args=[("full", sock, tmp)])[0]
+        launches["full"] = dict(fa.flash_attention.route_launches)
+        llama = tr.TransformerConfig.llama3_8b()
+        want = FULL_STEPS * llama.n_layers
+        say(f"12b llama3_8b b=2 s=512 through the broker: {full['wall_s']:.1f}"
+            f" s with init and compile; {full['steps_per_s']:.3f} steps/s "
+            f"in chains of {BROKER_CHAIN} after the first (phase 3 in "
+            f"process: {direct['serve']:.3f}); launches "
+            f"{json.dumps(launches['full'])}; ledger "
+            f"{full['ledger_before']} B; second init: {full['second_init']}")
+        check(fa.flash_attention.launches == want
+              and launches["full"]["sm90"] == want,
+              f"full-width launches {launches['full']} != {want} sm90")
+        check(full["tokens_ok"], "full-width tokens out of range")
+        check("RESOURCE_EXHAUSTED" in full["second_init"],
+              f"second init not refused: {full['second_init']}")
+        check(full["ledger_after"] == full["ledger_before"]
+              >= tr.state_bytes(llama),
+              f"ledger moved: {full['ledger_before']} -> "
+              f"{full['ledger_after']}")
+        deadline = time.monotonic() + 30
+        while broker_ledger(srv.state) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(broker_ledger(srv.state) == 0,
+              f"ledger {broker_ledger(srv.state)} after the tenant exited")
+
+        # 12c: shares, one tenant then two, 50% each given in HELLO.
+        t0 = time.monotonic()
+        solo = run_released([env], "brokered", tmp, "b_solo",
+                            args=[("share", sock, tmp)])
+        pair = run_released([env, env], "brokered", tmp, "b_pair",
+                            args=[("share", sock, tmp)] * 2)
+        for label, rows in (("alone", solo), ("pair", pair)):
+            say(f"12c {label} at {SHARE_CORE}%: " + "; ".join(
+                f"{r['steps_per_s']:.2f} steps/s, booked "
+                f"{r['booked_us'] / 1e6:.3f} s of {r['window_s']:.3f} s "
+                f"({r['booked_us'] / 1e6 / r['window_s']:.3f})"
+                for r in rows))
+            check(all(r["core"] == SHARE_CORE for r in rows),
+                  "a share tenant's slot lacks its HELLO core share")
+        say(f"12c took {time.monotonic() - t0:.1f} s")
+        lo, hi = SHARE_PAIR_BAND
+        alone = solo[0]["booked_us"] / 1e6 / solo[0]["window_s"]
+        for r in pair:
+            share = r["booked_us"] / 1e6 / r["window_s"]
+            check(lo <= share <= hi,
+                  f"a pair tenant booked {share:.3f} of its window, outside "
+                  f"{lo}-{hi}")
+            check(solo[0]["steps_per_s"] > r["steps_per_s"] and alone > share,
+                  f"the tenant alone ({solo[0]['steps_per_s']:.2f} steps/s, "
+                  f"{alone:.3f} of its window) did not outrun a 50% tenant "
+                  f"beside another ({r['steps_per_s']:.2f}, {share:.3f})")
+        deadline = time.monotonic() + 30
+        while broker_ledger(srv.state) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(broker_ledger(srv.state) == 0, "ledger not 0 after 12c")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    return {"sm90": launches["parity"]["sm90"] + launches["full"]["sm90"],
+            "wmma": launches["parity"]["wmma"] + launches["full"]["wmma"]}
+
+
 def child_main(args):
     """``--child serve`` (phase 6), ``--child metered <go file>`` (phase
     7), ``--child granted <go file>`` (phase 8), ``--child train`` or
     ``--child train_parity`` (phase 9), ``--child pod <go file> <report
     file>`` or ``--child pyshim`` (phase 10), ``--child viewpod <dir>
-    <name>`` or ``--child nvmlutil`` (phase 11): one tenant or probe;
+    <name>`` or ``--child nvmlutil`` (phase 11), ``--child brokered <go
+    file> <mode> <socket> <dir>`` (phase 12): one tenant or probe;
     prints its RESULT line."""
     import torch
 
+    torch_maps = libcuda_maps()
     if args[0] not in ("pod", "pyshim", "viewpod"):  # the pod's shim
         sys.path.insert(0, REPO)
     try:
@@ -2328,6 +2670,8 @@ def child_main(args):
             res = train_child(torch)
         elif args[0] == "train_parity":
             res = train_parity_child(torch)
+        elif args[0] == "brokered":
+            res = brokered_child(torch, torch_maps, *args[1:])
         else:
             res = metered_child(torch, args[1])
     except Failed as e:
@@ -2352,19 +2696,26 @@ def main():
     except ImportError as e:
         print(f"FAIL: the port is not importable here: {e}", file=sys.stderr)
         return 1
+    def phase(n, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        say(f"phase {n} took {time.monotonic() - t0:.1f} s")
+        return out
+
     try:
-        phase_device(torch)
-        timed = phase_kernel(torch)
+        phase(1, phase_device, torch)
+        timed = phase(2, phase_kernel, torch)
         with tempfile.TemporaryDirectory() as tmp:
-            launches, direct = phase_serve(torch, tmp)
-            phase_tenants(tmp)
-            phase_interposed(torch, tmp, direct)
-            phase_metered(tmp)
-            phase_plugin(torch, tmp)
-            phase_train(torch, tmp)
-            pods = phase_pods(torch, tmp)
-            phase_views(torch, tmp, pods["host"],
-                        [r["steps_per_s"] for r in pods["tenants"]])
+            launches, direct = phase("3-4", phase_serve, torch, tmp)
+            phase(5, phase_tenants, tmp)
+            phase(6, phase_interposed, torch, tmp, direct)
+            phase(7, phase_metered, tmp)
+            phase(8, phase_plugin, torch, tmp)
+            phase(9, phase_train, torch, tmp)
+            pods = phase(10, phase_pods, torch, tmp)
+            phase(11, phase_views, torch, tmp, pods["host"],
+                  [r["steps_per_s"] for r in pods["tenants"]])
+            brokered = phase(12, phase_broker, torch, tmp, direct)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2372,6 +2723,7 @@ def main():
     say(json.dumps({"kernels": [
         {"name": lib, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
          "replaces": KERNEL_REPLACES, "launches": launches[route],
+         "brokered_launches": brokered[route],
          "shape": {"bh": 64, "s": SERVE_S, "d": 128, "causal": True},
          **timed[SERVE_S][route]}
         for route, (lib, _symbol) in ROUTES.items()]}))

@@ -128,8 +128,8 @@ def test_cuda_without_card_raises():
 
 
 def test_import_hygiene():
-    """Every module of the port, and chip_smoke.py, import with jax and
-    vtpu made unimportable, and leave no vtpu module behind; the
+    """Every module of the port, and chip_smoke.py, import with jax,
+    ml_dtypes and vtpu made unimportable, and leave no vtpu module behind; the
     in-container bootstrap's two scripts, imported last with no grant in
     the environment, change nothing: not sys.path, not the import hooks,
     not torch, and they import no module of their own; the port's C++
@@ -150,7 +150,8 @@ def test_import_hygiene():
         sys.path.insert(0, {REPO!r})
 
         def banned(name):
-            return name.split(".")[0] in ("jax", "jaxlib", "vtpu")
+            return name.split(".")[0] in ("jax", "jaxlib", "vtpu",
+                                          "ml_dtypes")
 
         for name in [m for m in sys.modules if banned(m)]:
             del sys.modules[name]
@@ -189,7 +190,9 @@ def test_import_hygiene():
         "vtpu_torch.shim.interposer", "vtpu_torch.k8s.client",
         "vtpu_torch.plugin.controller", "vtpu_torch.metricsd.server",
         "vtpu_torch.tools.vtpu_smi", "vtpu_torch.tools.tpu_info",
-        "vtpu_torch.tools.metrics_server", *boot} <= set(mods)
+        "vtpu_torch.tools.metrics_server", "vtpu_torch.runtime.protocol",
+        "vtpu_torch.runtime.server", "vtpu_torch.runtime.client",
+        "vtpu_torch.utils.dtypes", *boot} <= set(mods)
 
     native = os.path.join(PORT, "native")
     sources = sorted(os.listdir(native))
