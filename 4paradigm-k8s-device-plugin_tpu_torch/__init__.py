@@ -13,7 +13,8 @@ and mounts that put a tenant under the native interposer
 (``native/interposer.cc``).
 
 The broker (``runtime``) runs tenants that never open a card on
-``vtpu``'s wire, their programs ``torch.export`` graphs.
+``vtpu``'s wire, their programs ``torch.export`` graphs; with a journal
+its tenants' state survives a crash, a device fault or a handover.
 
 The package imports torch and numpy (and, in ``proto`` and
 ``plugin/server.py`` only, grpc; in ``runtime`` msgpack); it keeps its

@@ -222,7 +222,7 @@ def serve_brokered(client,
                    init: str = "program", chain: int = 4, depth: int = 2,
                    seconds: Optional[float] = None,
                    prompt: Optional[np.ndarray] = None,
-                   on_ready=None) -> Dict[str, Any]:
+                   on_ready=None, on_chain=None) -> Dict[str, Any]:
     """Serve ``cfg`` greedily as the tenant of ``client`` (an open
     ``runtime.client.RuntimeClient``, whose HELLO set the grant), on the
     flash path (K1 runs in the broker).
@@ -235,16 +235,41 @@ def serve_brokered(client,
     ``chain`` steps (``repeats=chain``, ``carry=((0, 0),)``), ``depth``
     in flight; ``seconds`` runs chains until that long has passed
     instead of ``steps``.  ``on_ready()`` is called once the weights are
-    in place and the program compiled, before the first chain.  The
-    client stays open.  Returns the final tokens and those of the chain
-    before (None after one chain), the steps run, the steps per second
-    after the first chain, the device time booked to the tenant in that
-    window (``busy_us`` of STATS) beside the window, the tenant's STATS
-    row at the end, the weights' ids and the init program (None when
-    the weights were PUT)."""
+    in place and the program compiled, before the first chain;
+    ``on_chain(n)`` after each chain's tokens are fetched, ``n`` the
+    steps done, and a true return sends no more chains.
+
+    Each chain's reply (sent at its dispatch) is read before the next
+    chain is sent, so no two chains share a dispatch, a metering batch or
+    a GET's wait; the oldest chain's tokens are then fetched (a GET waits
+    for that chain alone) while the next one, already queued behind it on
+    the card, runs, so ``depth`` chains stay in flight.  Those tokens are
+    what a restart resumes from: an execute's outputs are not journaled,
+    so on a ``VtpuConnectionLost`` (the broker restarted and the journal
+    resumed this tenant, or the connection dropped) the chains in flight
+    are gone, and the last fetched tokens are PUT again and the chains
+    sent again from there (so is a chain whose reply came from the old
+    broker and whose output was NOT_FOUND on the new one).  A
+    ``VtpuStateLost`` (the tenant's weights and program are gone) is
+    raised; so is the NOT_FOUND of weights made by the init program,
+    which are outputs too and do not survive a restart.  The client
+    stays open.
+
+    Returns the final tokens and those of the chain before (None after
+    one chain), the steps run, the steps per second after the first
+    chain, the device time booked to the tenant in that window
+    (``busy_us`` of STATS) beside the window, the tenant's STATS row at
+    the end, the weights' ids, the init program (None when the weights
+    were PUT), the seconds the weights and the compile took, each
+    fetched chain's (steps done, monotonic time) and each resume's step,
+    time and error."""
+    from .runtime.client import (RuntimeError_, VtpuConnectionLost,
+                                 VtpuStateLost)
+
     cfg = dataclasses.replace(_config(cfg), use_flash=True)
     names = [name for name, _, _ in param_shapes(cfg)]
     init_exe = None
+    t_setup = time.monotonic()
     if weights is not None or init == "put":
         if weights is None:
             model = init_module(cfg, torch.Generator().manual_seed(seed),
@@ -259,23 +284,89 @@ def serve_brokered(client,
         outs = init_exe()
         param_ids = [h.id for h in outs]
     start = np.zeros((batch, seq), np.int32) if prompt is None else prompt
-    client.put(torch.as_tensor(start, dtype=torch.int32), "tok0")
+    tokens = torch.as_tensor(start, dtype=torch.int32)
+    client.put(tokens, "tok0")
     meta = [torch.empty((batch, seq), dtype=torch.int32, device="meta")]
     meta += [torch.empty(shape, dtype=dtype, device="meta")
              for _, shape, dtype in param_shapes(cfg)]
+    t_compile = time.monotonic()
     exe = client.compile(greedy_program(cfg), meta)
-    cur, nxt = "tok0", "tok1"
-    sent, timed, chains = 0, 0, collections.deque()
+    setup_s = {"weights": t_compile - t_setup,
+               "compile": time.monotonic() - t_compile}
+    ids = {"cur": "tok0", "nxt": "tok1"}
+    sent, done, timed = 0, 0, 0
+    chains: "collections.deque" = collections.deque()
+    prev = None
+    chain_times, resumes = [], []
+    stop = False
+
+    # The broker epoch the last tokens and the chains in flight belong
+    # to: a request may resume under a new one transparently (an
+    # idempotent STATS, GET or PUT), and then nothing in flight survived.
+    live = client.epoch
+
+    def restart(why: str, resumed: bool) -> None:
+        """Drop the chains in flight and PUT the last tokens again."""
+        nonlocal sent, live
+        resumes.append({"at_step": done, "t": time.monotonic(),
+                        "resumed": resumed, "error": why})
+        chains.clear()
+        ids["cur"], ids["nxt"] = "tok0", "tok1"
+        client.put(tokens, "tok0")
+        live = client.epoch
+        sent = done
+
+    def lost(e: Exception) -> bool:
+        """Whether ``e`` means the broker went away under this request
+        (the chains are then sent again), not the tenant's own error."""
+        if isinstance(e, VtpuStateLost) or not (
+                isinstance(e, VtpuConnectionLost)
+                or client.epoch != live):
+            return False
+        restart(str(e), bool(getattr(e, "resumed", True)))
+        return True
 
     def send(k: int) -> None:
-        nonlocal cur, nxt, sent
-        client.execute_send_ids(exe.id, [cur] + param_ids, [nxt], repeats=k,
-                           carry=((0, 0),))
-        cur, nxt = nxt, cur
+        nonlocal sent
+        if client.epoch != live:
+            restart(f"epoch {live} -> {client.epoch}", True)
+        try:
+            client.execute_send_ids(exe.id, [ids["cur"]] + param_ids,
+                                    [ids["nxt"]], repeats=k,
+                                    carry=((0, 0),))
+            client.execute_recv()
+        except RuntimeError_ as e:
+            if not lost(e):
+                raise
+            return
+        chains.append((k, ids["nxt"]))
+        ids["cur"], ids["nxt"] = ids["nxt"], ids["cur"]
         sent += k
-        chains.append(k)
+
+    def fetch() -> int:
+        """The oldest chain's tokens; 0 when the broker went away (the
+        chains are sent again from the last tokens)."""
+        nonlocal tokens, prev, done, stop
+        if client.epoch != live:
+            restart(f"epoch {live} -> {client.epoch}", True)
+            return 0
+        k, out = chains[0]
+        try:
+            got = client.get(out)
+        except RuntimeError_ as e:
+            if not lost(e):
+                raise
+            return 0
+        chains.popleft()
+        prev, tokens, done = tokens, got, done + k
+        chain_times.append((done, time.monotonic()))
+        if on_chain is not None and on_chain(done):
+            stop = True
+        return k
 
     def more(t0: float) -> bool:
+        if stop:
+            return False
         if seconds is None:
             return sent < steps
         return time.monotonic() - t0 < seconds
@@ -283,9 +374,12 @@ def serve_brokered(client,
     if on_ready is not None:
         on_ready()
     # The first chain carries the program's first run, untimed.
-    send(chain if seconds is not None else min(chain, steps))
-    client.execute_recv()
-    chains.popleft()
+    first = chain if seconds is not None else min(chain, steps)
+    while done < first:
+        if not chains:
+            send(first)
+        if chains:
+            fetch()
     busy0 = client.stats()[client.tenant]["busy_us"]
     t0 = time.monotonic()
     while True:
@@ -295,23 +389,23 @@ def serve_brokered(client,
             continue
         if not chains:
             break
-        client.execute_recv()
-        timed += chains.popleft()
+        timed += fetch()
     # STATS waits until the broker has metered every dispatched step.
     stats = client.stats()[client.tenant]
     window = time.monotonic() - t0
-    tokens = client.get(cur)
-    prev = client.get(nxt) if sent > chain else None
     return {
         "tokens": tokens,
-        "prev_tokens": prev,
-        "steps": sent,
+        "prev_tokens": prev if done > first else None,
+        "steps": done,
         "steps_per_s": timed / window if timed else float("nan"),
         "booked_us": stats["busy_us"] - busy0,
         "window_s": window,
         "stats": stats,
         "param_ids": param_ids,
         "init_exe": init_exe,
+        "setup_s": setup_s,
+        "chain_times": chain_times,
+        "resumes": resumes,
     }
 
 

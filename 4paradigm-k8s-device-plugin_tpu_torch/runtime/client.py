@@ -22,17 +22,40 @@ a CPU tensor; a dtype crosses as its name (``utils.dtypes``), bf16 as
 torch's bytes under ``"bfloat16"``.  Every quota refusal raises
 ``VtpuQuotaError`` with the broker's RESOURCE_EXHAUSTED message.
 
-Not here yet: reconnect, resume and the degraded mode (ROADMAP Queue 1
-item 6(b)): a lost connection raises ``VtpuConnectionLost`` and the
-client is done; leases and the fastlane (6(c)).
+A lost connection is ``vtpu``'s (``_on_disconnect``): the client dials
+the socket again (the daemon restarts a broker) with full-jitter
+backoff, offering its epoch in HELLO (``resume_epoch``), and classifies
+what it finds:
+
+- **resumed**: a journaled successor recovered this tenant, state
+  intact.  A request in ``protocol.IDEMPOTENT_VERBS`` is retried and
+  the caller never sees the restart; a pipelined execute in flight
+  surfaces as ``VtpuConnectionLost`` with ``resumed`` true (it never
+  runs twice), and the caller sends it again;
+- **fresh epoch, or a fresh slot**: the tenant's state is gone:
+  ``VtpuStateLost`` (put and compile again on this client);
+- **same epoch, same tenant**: only the requests in flight are lost:
+  ``VtpuConnectionLost``.
+
+With ``VTPU_BROKER_GRACE_S`` above 0, a broker gone past the grace puts
+the client in degraded mode (``runtime/degraded.py``): operations fail
+fast with ``VtpuBrokerUnavailable``, the last-granted quotas still bite
+(a PUT past the cap raises ``VtpuQuotaError``), compiles queue, and the
+next operation that finds the broker back reattaches.  With
+``VTPU_TRACE=1`` every request carries a trace stamp; off, the wire
+carries no extra field.
+
+Not here yet: rate leases and the fastlane (ROADMAP Queue 1 item 6(c)).
 """
 
 from __future__ import annotations
 
 import itertools
 import os
+import random
 import socket
-from typing import Any, Dict, List, Optional, Sequence, Union
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,9 +63,28 @@ import torch
 from ..utils import envspec
 from ..utils.dtypes import (dtype_name, tensor_bytes, tensor_from_bytes,
                             torch_dtype)
+from . import faults
 from . import protocol as P
+from . import trace as tracing
 
 Tensorish = Union[torch.Tensor, np.ndarray]
+
+
+def _env(name: str, default: float) -> float:
+    """A float knob; junk reads as the default."""
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def full_jitter_delay(rng: random.Random, base_s: float, cap_s: float,
+                      attempt: int) -> float:
+    """Bounded exponential backoff with full jitter: uniform over
+    [0, min(cap, base * 2^attempt)], which desynchronises the tenants
+    that reconnect after one broker restart."""
+    cap = min(cap_s, base_s * (2 ** min(max(attempt, 0), 16)))
+    return rng.uniform(0.0, cap)
 
 
 class VtpuQuotaError(MemoryError):
@@ -54,11 +96,38 @@ class RuntimeError_(RuntimeError):
 
 
 class VtpuConnectionLost(RuntimeError_):
-    """The connection to the broker died mid-request.  This client does
-    not rebind (ROADMAP Queue 1 item 6(b)): the tenant's state is gone
-    with its last connection, and in-flight replies are lost."""
+    """The connection died and was rebound with the tenant's state
+    intact: only the requests in flight (and their replies) are lost.
+
+    ``resumed`` is True when the state survived a broker RESTART through
+    the journal (HELLO resume) rather than the broker staying alive:
+    quotas, arrays, programs and cost EMAs are intact on the new
+    instance, idempotent requests are retried transparently, and
+    pipelined executes in flight at the crash died unreplied."""
 
     resumed = False
+
+
+class VtpuBrokerUnavailable(RuntimeError_):
+    """The broker has been unreachable past ``VTPU_BROKER_GRACE_S`` and
+    the client is in degraded mode: operations fail fast with this error
+    instead of blocking, the last-granted quotas keep biting locally,
+    and compiles queue for replay.  The next operation that finds the
+    broker back reattaches."""
+
+
+class VtpuStateLost(RuntimeError_):
+    """The broker restarted under this client without its state (a fresh
+    HELLO epoch), or tore the tenant down before the rebind: every
+    RemoteArray and RemoteExecutable handle is gone.  The client has
+    already rebound; put and compile again on the SAME client, and start
+    the send/receive pairing afresh."""
+
+    def __init__(self, msg: str, epoch_old: Optional[str] = None,
+                 epoch_new: Optional[str] = None):
+        super().__init__(msg)
+        self.epoch_old = epoch_old
+        self.epoch_new = epoch_new
 
 
 class VtpuOverload(RuntimeError_):
@@ -159,7 +228,9 @@ class RuntimeClient:
                  hbm_limit: Optional[int] = None,
                  core_limit: Optional[int] = None,
                  oversubscribe: Optional[bool] = None,
-                 timeout: Optional[float] = None):
+                 timeout: Optional[float] = None,
+                 reconnect_timeout: Optional[float] = None,
+                 trace: Optional[bool] = None):
         self._socket_path = socket_path
         self._ids = itertools.count()
         # Executes buffered by execute_send_ids ship as one EXEC_BATCH
@@ -171,6 +242,11 @@ class RuntimeClient:
         # still expected from the wire.
         self._ready: List[Dict[str, Any]] = []
         self._wire_out = 0
+        # With tracing on every request carries a stamp; off, none.
+        self._trace_on = tracing.trace_enabled() if trace is None \
+            else bool(trace)
+        self.last_trace_id: Optional[str] = None
+        self._closed = False
         spec = envspec.quota_from_env()
         self.tenant = tenant or os.environ.get(
             "VTPU_TENANT", f"{socket.gethostname()}-pid{os.getpid()}")
@@ -181,6 +257,12 @@ class RuntimeClient:
                  if oversubscribe is None else bool(oversubscribe),
                  "device": 0 if device is None else int(device),
                  "pid": os.getpid()}
+        try:
+            # The broker judges the pid's liveness at recovery only in
+            # its own pid namespace.
+            hello["pidns"] = os.stat("/proc/self/ns/pid").st_ino
+        except OSError:
+            pass
         hbm = hbm_limit
         if hbm is None and spec.hbm_limit_bytes:
             hbm = spec.limit_for(0)
@@ -191,15 +273,43 @@ class RuntimeClient:
             hello["hbm_limit"] = int(hbm)
         if core is not None:
             hello["core_limit"] = int(core)
+        self._hello = hello
         if timeout is None:
-            timeout = float(os.environ.get("VTPU_RPC_TIMEOUT_S", "120"))
-        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-        self.sock.settimeout(timeout if timeout > 0 else None)
-        self.sock.connect(socket_path)
-        resp = self._rpc(hello)
-        self.tenant_index = resp["tenant_index"]
-        self.chip = resp.get("chip", 0)
-        self.epoch = resp.get("epoch")
+            timeout = _env("VTPU_RPC_TIMEOUT_S", 120.0)
+        self._rpc_timeout = timeout
+        self._connect_timeout = _env("VTPU_CONNECT_TIMEOUT_S", 5.0)
+        # How long a disconnected client dials again before giving up
+        # (or going degraded), and its full-jitter backoff, seeded per
+        # tenant and pid.
+        self._reconnect_timeout = (
+            _env("VTPU_RECONNECT_TIMEOUT_S", 15.0)
+            if reconnect_timeout is None else float(reconnect_timeout))
+        self._backoff_base = max(
+            _env("VTPU_RECONNECT_BACKOFF_MS", 50.0) / 1e3, 1e-3)
+        self._backoff_cap = max(
+            _env("VTPU_RECONNECT_BACKOFF_CAP_MS", 2000.0) / 1e3,
+            self._backoff_base)
+        self._backoff_rng = random.Random(f"{self.tenant}\x00{os.getpid()}")
+        # The backoff stays flat this long after a loss, so a restart's
+        # blackout is the restart and not jitter.
+        self._fast_reconnect_s = _env("VTPU_RECONNECT_FAST_S", 2.0)
+        # Degraded mode past this many seconds without a broker (0: a
+        # hard error after the reconnect budget).
+        self._grace_s = _env("VTPU_BROKER_GRACE_S", 0.0)
+        self._degraded = False
+        self._deg_since = 0.0
+        self._deg_attempt = 0
+        self._deg_next_dial = 0.0
+        self._deg_enforcer: Optional[Any] = None
+        self._deg_q: List[Tuple[str, bytes]] = []
+        self._deg_qmax = int(_env("VTPU_DEGRADED_QUEUE", 32.0))
+        # This tenant's PUT footprint (id -> bytes): what degraded mode
+        # charges against the last-granted cap.
+        self._used_mirror: Dict[str, int] = {}
+        self._granted_hbm = int(hello.get("hbm_limit") or 0)
+        self._granted_core = int(hello.get("core_limit") or 0)
+        self.epoch: Optional[str] = None
+        self.epoch = self._connect()[0]
 
     @classmethod
     def from_env(cls, **kw) -> "RuntimeClient":
@@ -207,23 +317,228 @@ class RuntimeClient:
         return cls(spec.runtime_socket or "/usr/local/vtpu/vtpu-runtime.sock",
                    **kw)
 
+    # Kinds an interrupted synchronous request retries after a resumed
+    # reconnect: the protocol's idempotent tenant verbs.
+    _RESUME_RETRY_KINDS = frozenset(P.IDEMPOTENT_VERBS) \
+        & frozenset(P.TENANT_VERBS)
+
+    # -- connection --
+
+    def _connect(self) -> Tuple[Optional[str], bool, bool]:
+        """Dial and HELLO; (epoch, created, resumed): ``created`` when the
+        broker bound a FRESH tenant slot, ``resumed`` when it adopted a
+        tenant recovered from its journal.  For the first connection and
+        every rebind."""
+        self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        if self._connect_timeout > 0:
+            self.sock.settimeout(self._connect_timeout)
+        faults.fire("connect")
+        self.sock.connect(self._socket_path)
+        self.sock.settimeout(self._rpc_timeout
+                             if self._rpc_timeout > 0 else None)
+        msg = dict(self._hello)
+        if self.epoch:
+            msg["resume_epoch"] = self.epoch
+        P.send_msg(self.sock, msg)
+        resp = P.recv_msg(self.sock)
+        if not resp.get("ok"):
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+            if resp.get("code") == "OVERLOAD":
+                raise VtpuOverload(resp.get("error", "overloaded"),
+                                   retry_ms=resp.get("retry_ms"))
+            raise RuntimeError_(
+                f"{resp.get('code', '')}: {resp.get('error', '')}")
+        self.tenant_index = resp["tenant_index"]
+        self.chip = resp.get("chip", 0)
+        # What was buffered or read ahead belonged to the old socket.
+        self._pending_batch.clear()
+        self._ready.clear()
+        self._wire_out = 0
+        return (resp.get("epoch"), bool(resp.get("created", False)),
+                bool(resp.get("resumed", False)))
+
+    def _on_disconnect(self) -> None:
+        """The connection died mid-request: dial again and classify
+        (module docstring).  Always raises."""
+        if self._closed:
+            raise RuntimeError_("client is closed")
+        if self._degraded:
+            raise VtpuBrokerUnavailable(
+                f"broker still unreachable on {self._socket_path} "
+                f"(degraded mode since "
+                f"{time.monotonic() - self._deg_since:.0f}s)")
+        old = self.epoch
+        budget = self._reconnect_timeout
+        if self._grace_s > 0:
+            budget = max(budget, self._grace_s)
+        t_lost = time.monotonic()
+        deadline = t_lost + budget
+        attempt = 0
+        last: Optional[BaseException] = None
+        while time.monotonic() < deadline:
+            try:
+                self.sock.close()
+            except OSError:
+                pass
+            fast = time.monotonic() - t_lost < self._fast_reconnect_s
+            try:
+                new_epoch, created, resumed = self._connect()
+            except (ConnectionError, FileNotFoundError, OSError,
+                    P.ProtocolError, RuntimeError_) as e:
+                # Nobody listening yet, or HELLO refused (DRAINING during
+                # a handover, slots still held by a dying session).
+                last = e
+                attempt += 1
+                self._backoff_sleep(attempt, deadline, fast=fast)
+                continue
+            if resumed:
+                self.epoch = new_epoch
+                err = VtpuConnectionLost(
+                    f"CONNECTION_LOST: broker restarted and this tenant was "
+                    f"recovered from its journal (epoch {old} -> "
+                    f"{new_epoch}); state is intact, only in-flight "
+                    f"requests were lost")
+                err.resumed = True
+                raise err
+            if new_epoch != old or created:
+                self.epoch = new_epoch
+                self._used_mirror.clear()
+                self._deg_q.clear()
+                why = ("broker restarted" if new_epoch != old else
+                       "broker alive but tenant state was torn down before "
+                       "the rebind")
+                raise VtpuStateLost(
+                    f"{why} (epoch {old} -> {new_epoch}); arrays and "
+                    f"executables are lost — re-put/re-compile on this "
+                    f"client", epoch_old=old, epoch_new=new_epoch)
+            raise VtpuConnectionLost(
+                "CONNECTION_LOST: broker connection dropped and was rebound "
+                "(same epoch, state intact); in-flight requests were lost")
+        if self._grace_s > 0:
+            self._enter_degraded()
+            raise VtpuBrokerUnavailable(
+                f"broker unreachable for {budget:.0f}s on "
+                f"{self._socket_path}; degraded mode: local enforcement at "
+                f"last-granted limits, reattach pending ({last})")
+        raise RuntimeError_(f"broker unreachable for {budget:.0f}s on "
+                            f"{self._socket_path}: {last}")
+
+    def _backoff_sleep(self, attempt: int, deadline: float,
+                       fast: bool = False) -> None:
+        """One jittered pause, clipped to the deadline; ``fast`` holds
+        the exponent down during the fast-reconnect window."""
+        if fast:
+            attempt = min(attempt, 2)
+        delay = full_jitter_delay(self._backoff_rng, self._backoff_base,
+                                  self._backoff_cap, attempt)
+        time.sleep(max(min(delay, deadline - time.monotonic()), 0.0))
+
+    # -- degraded mode (runtime/degraded.py) --
+
+    def _enter_degraded(self) -> None:
+        self._degraded = True
+        self._deg_since = time.monotonic()
+        self._deg_attempt = 0
+        self._deg_next_dial = 0.0
+        if self._deg_enforcer is None:
+            from . import degraded
+            self._deg_enforcer = degraded.LocalEnforcer.from_env(
+                hbm_limit=self._granted_hbm, core_pct=self._granted_core,
+                used_bytes=sum(self._used_mirror.values()))
+
+    def _try_reattach(self) -> bool:
+        """One paced dial; True when the client is back with its state
+        (a journal resume, or the broker never died).  A fresh epoch
+        raises VtpuStateLost."""
+        now = time.monotonic()
+        if now < self._deg_next_dial:
+            return False
+        self._deg_attempt += 1
+        self._deg_next_dial = now + full_jitter_delay(
+            self._backoff_rng, self._backoff_base, self._backoff_cap,
+            self._deg_attempt)
+        old = self.epoch
+        try:
+            new_epoch, created, resumed = self._connect()
+        except (ConnectionError, FileNotFoundError, OSError,
+                P.ProtocolError, RuntimeError_):
+            return False
+        self._degraded = False
+        if self._deg_enforcer is not None:
+            self._deg_enforcer.close()
+            self._deg_enforcer = None
+        self.epoch = new_epoch
+        if resumed or (new_epoch == old and not created):
+            self._replay_degraded_queue()
+            return True
+        self._deg_q.clear()
+        self._used_mirror.clear()
+        raise VtpuStateLost(
+            f"broker restarted while degraded (epoch {old} -> {new_epoch}); "
+            f"arrays and executables are lost — re-put/re-compile on this "
+            f"client", epoch_old=old, epoch_new=new_epoch)
+
+    def _replay_degraded_queue(self) -> None:
+        """Register the compiles queued while degraded under their
+        reserved ids."""
+        q, self._deg_q = self._deg_q, []
+        for eid, blob in q:
+            self._rpc({"kind": P.COMPILE, "id": eid, "exported": blob})
+
+    def _degraded_gate(self, nbytes: int = 0, est_us: float = 0.0) -> None:
+        """Every operation in degraded mode comes here: a reattach is
+        tried; while the broker stays gone the last-granted quotas still
+        bite, and everything else fails fast."""
+        if not self._degraded:
+            return
+        if self._try_reattach():
+            return
+        enf = self._deg_enforcer
+        if enf is not None and nbytes and not enf.admit_bytes(nbytes):
+            raise VtpuQuotaError(
+                f"RESOURCE_EXHAUSTED: degraded mode: {nbytes} bytes would "
+                f"exceed the last-granted HBM quota "
+                f"({self._granted_hbm or 'contract'} limit) — enforcement "
+                f"holds while the broker is down")
+        if enf is not None and est_us and not enf.admit_us(est_us):
+            raise VtpuQuotaError(
+                "RESOURCE_EXHAUSTED: degraded mode: device-time quota "
+                "exhausted at the last-granted rate — enforcement holds "
+                "while the broker is down")
+        raise VtpuBrokerUnavailable(
+            f"broker unreachable on {self._socket_path} (degraded since "
+            f"{time.monotonic() - self._deg_since:.0f}s); operation failed "
+            f"cleanly, will reattach when the broker returns")
+
     # -- plumbing --
 
-    def _lost(self, e: BaseException) -> VtpuConnectionLost:
-        return VtpuConnectionLost(f"connection to the broker lost: "
-                                  f"{type(e).__name__}: {e}")
+    def _maybe_stamp(self, msg: Dict[str, Any]) -> Dict[str, Any]:
+        """The trace stamp when tracing is on; the message unchanged
+        otherwise."""
+        if self._trace_on:
+            self.last_trace_id = tracing.new_trace_id()
+            msg["trace"] = {"id": self.last_trace_id, "ts": time.time()}
+        return msg
 
     def _recv(self) -> Dict[str, Any]:
-        try:
-            return P.recv_msg(self.sock)
-        except (ConnectionError, P.ProtocolError, OSError) as e:
-            raise self._lost(e) from e
+        faults.fire("recv")
+        return P.recv_msg(self.sock)
 
-    def _send_frames(self, bufs) -> None:
+    def _recv_or_rebind(self) -> Dict[str, Any]:
+        try:
+            return self._recv()
+        except (ConnectionError, P.ProtocolError, OSError):
+            self._on_disconnect()
+            raise AssertionError("unreachable")  # it always raises
+
+    def _send_or_rebind(self, bufs) -> None:
         try:
             P.send_frames(self.sock, bufs)
-        except (ConnectionError, OSError) as e:
-            raise self._lost(e) from e
+        except (ConnectionError, P.ProtocolError, OSError):
+            self._on_disconnect()
 
     def _explode(self, resp: Dict[str, Any]) -> List[Dict[str, Any]]:
         """One wire frame as its logical replies: an EXEC_BATCH reply's
@@ -240,15 +555,17 @@ class RuntimeClient:
             msg: Dict[str, Any] = dict(items[0], kind=P.EXECUTE)
         else:
             msg = {"kind": P.EXEC_BATCH, "items": items}
-        self._send_frames([P.frame_header(msg)])
+        self._send_or_rebind([P.frame_header(self._maybe_stamp(msg))])
         self._wire_out += len(items)
 
     def _sync_prelude(self) -> None:
         """Ship buffered executes and read every reply still on the wire,
         so the next frame read answers the synchronous request."""
+        if self._degraded:
+            self._degraded_gate()
         self._flush_batch()
         while self._wire_out > 0:
-            out = self._explode(self._recv())
+            out = self._explode(self._recv_or_rebind())
             self._wire_out -= len(out)
             self._ready.extend(out)
 
@@ -262,20 +579,36 @@ class RuntimeClient:
                                retry_ms=resp.get("retry_ms"))
         raise RuntimeError_(f"{code}: {resp.get('error', '')}")
 
-    def _rpc(self, msg: Dict[str, Any], payloads=()) -> Dict[str, Any]:
+    def _rpc(self, msg: Dict[str, Any], payloads=(),
+             _retry: bool = True) -> Dict[str, Any]:
         """One synchronous request, its payloads as raw frames in the
-        same gather write."""
+        same gather write.  After a resumed reconnect an idempotent
+        request runs again on the new instance, once."""
         self._sync_prelude()
-        bufs = [P.frame_header(msg)]
-        for p in payloads:
-            bufs.extend(P.raw_frames(p))
-        self._send_frames(bufs)
-        resp = self._recv()
+        try:
+            bufs = [P.frame_header(self._maybe_stamp(msg))]
+            for p in payloads:
+                bufs.extend(P.raw_frames(p))
+            P.send_frames(self.sock, bufs)
+            resp = self._recv()
+        except (ConnectionError, P.ProtocolError, OSError):
+            try:
+                self._on_disconnect()
+                raise AssertionError("unreachable")
+            except VtpuConnectionLost as e:
+                if e.resumed and _retry and not msg.get("staged") \
+                        and msg.get("kind") in self._RESUME_RETRY_KINDS:
+                    return self._rpc(msg, payloads, _retry=False)
+                raise
         if not resp.get("ok"):
             self._raise_reply_error(resp)
         return resp
 
     def close(self) -> None:
+        self._closed = True
+        if self._deg_enforcer is not None:
+            self._deg_enforcer.close()
+            self._deg_enforcer = None
         try:
             self.sock.close()
         except OSError:
@@ -302,7 +635,11 @@ class RuntimeClient:
         t = as_tensor(x)
         aid = aid or f"a{next(self._ids)}"
         hdr, flat = self._put_raw_parts(t, aid)
+        if self._degraded:
+            # The last-granted cap decides before any transport attempt.
+            self._degraded_gate(nbytes=len(flat))
         self._rpc(hdr, [flat])
+        self._used_mirror[aid] = len(flat)
         return RemoteArray(self, aid, t.shape, t.dtype)
 
     def put_parts(self, x: Tensorish) -> int:
@@ -313,33 +650,46 @@ class RuntimeClient:
         """Pipelined PUT: sent without reading its ack, which the caller
         consumes with ``recv_reply`` in send order; returns 1."""
         t = as_tensor(x)
-        self._flush_batch()
         hdr, flat = self._put_raw_parts(t, aid)
-        self._send_frames([P.frame_header(hdr)] + P.raw_frames(flat))
+        if self._degraded:
+            self._degraded_gate(nbytes=len(flat))
+        self._flush_batch()
+        self._send_or_rebind([P.frame_header(self._maybe_stamp(hdr))]
+                             + P.raw_frames(flat))
         self._wire_out += 1
+        self._used_mirror[aid] = len(flat)
         return 1
 
-    def get(self, aid: str) -> torch.Tensor:
+    def get(self, aid: str, _retry: bool = True) -> torch.Tensor:
         """The tensor ``aid`` as a CPU tensor (raw framing: the payload is
-        received into one buffer of its exact size)."""
+        received into one buffer of its exact size).  Retried once after
+        a resumed reconnect, like every idempotent request."""
         resp = self._rpc({"kind": P.GET, "id": aid, "raw": True})
         buf = bytearray(int(resp["nbytes"]))
         mv = memoryview(buf)
         got = 0
         try:
-            for _ in range(int(resp["raw_parts"])):
-                got += P.recv_raw_into(self.sock, mv[got:])
-        except (ConnectionError, P.ProtocolError, OSError) as e:
-            raise self._lost(e) from e
+            try:
+                for _ in range(int(resp["raw_parts"])):
+                    got += P.recv_raw_into(self.sock, mv[got:])
+            except (ConnectionError, P.ProtocolError, OSError):
+                self._on_disconnect()
+        except VtpuConnectionLost as e:
+            if e.resumed and _retry:
+                return self.get(aid, _retry=False)
+            raise
         return tensor_from_bytes(buf, resp["dtype"], resp["shape"])
 
     def delete(self, aid: str) -> None:
         self._rpc({"kind": P.DELETE, "id": aid})
+        self._used_mirror.pop(aid, None)
 
     def delete_many(self, aids: Sequence[str]) -> None:
         """One round trip for any number of ids."""
         if aids:
             self._rpc({"kind": P.DELETE, "ids": list(aids)})
+            for aid in aids:
+                self._used_mirror.pop(aid, None)
 
     # -- compute --
 
@@ -350,7 +700,18 @@ class RuntimeClient:
         return self.compile_blob(export_graph(fn, example_args))
 
     def compile_blob(self, blob: bytes) -> RemoteExecutable:
-        """Register an already-serialized graph."""
+        """Register an already-serialized graph.  In degraded mode it
+        queues (bounded) under a reserved id and registers at the
+        reattach, so the handle becomes live then."""
+        if self._degraded:
+            if not self._try_reattach():
+                if len(self._deg_q) >= max(self._deg_qmax, 0):
+                    raise VtpuBrokerUnavailable(
+                        f"degraded compile queue full ({self._deg_qmax} "
+                        f"blobs); broker still unreachable")
+                eid = f"e{next(self._ids)}"
+                self._deg_q.append((eid, bytes(blob)))
+                return RemoteExecutable(self, eid)
         eid = f"e{next(self._ids)}"
         self._rpc({"kind": P.COMPILE, "id": eid, "exported": bytes(blob)})
         return RemoteExecutable(self, eid)
@@ -366,6 +727,20 @@ class RuntimeClient:
     def stats(self) -> Dict[str, Any]:
         return self._rpc({"kind": P.STATS})["tenants"]
 
+    def trace(self, tenant: Optional[str] = None,
+              limit: int = 0) -> Dict[str, Any]:
+        """The flight recorder's spans and slow-op captures
+        (``runtime/trace.py``): {"enabled", "tenants": {name: {spans,
+        captures}}}."""
+        msg: Dict[str, Any] = {"kind": P.TRACE}
+        if tenant is not None:
+            msg["tenant"] = tenant
+        if limit:
+            msg["limit"] = int(limit)
+        r = self._rpc(msg)
+        return {"enabled": r.get("enabled", False),
+                "tenants": r.get("tenants", {})}
+
     # -- pipelined execution --
     # Replies are FIFO per connection: a caller may keep executes in
     # flight as long as it pairs sends with receives.
@@ -380,7 +755,10 @@ class RuntimeClient:
         output indices into the next step's argument indices; ``free``
         ids drop at this item's dispatch.  Items are coalesced into one
         EXEC_BATCH frame, flushed when full and before any other send or
-        any receive."""
+        any receive.  In degraded mode the last-granted share paces the
+        attempt before it fails."""
+        if self._degraded:
+            self._degraded_gate(est_us=5000.0)
         item: Dict[str, Any] = {"exe": eid, "args": list(arg_ids),
                                 "outs": list(out_ids)}
         if repeats > 1:
@@ -398,8 +776,10 @@ class RuntimeClient:
         if self._ready:
             resp = self._ready.pop(0)
         else:
+            if self._degraded:
+                self._degraded_gate()
             self._flush_batch()
-            out = self._explode(self._recv())
+            out = self._explode(self._recv_or_rebind())
             self._wire_out -= len(out)
             resp, self._ready = out[0], self._ready + out[1:]
         if not resp.get("ok"):

@@ -41,8 +41,10 @@ PUT, GET, DELETE and read STATS here.  What differs is the program:
 - **Completion is a CUDA event.**  Replies go out at dispatch (output
   shapes are static in the graph); every copy and launch of a card runs
   on that card's one stream, so a PUT's copy is ordered before the
-  execute that reads it; the metering thread waits on the event of a
-  batch's last item, on its own thread only.
+  execute that reads it; the dispatcher records one event after each
+  batch it dispatches (one per item while ``VTPU_TRACE=1``, for the
+  spans' device phase), and the metering thread waits on the last one,
+  on its own thread only.
 - **Chained execute** (``repeats``/``carry``) is a loop in the
   dispatcher: K-1 carried calls and one plain call whose outputs all
   return, queued with no host synchronisation.
@@ -53,7 +55,11 @@ PUT, GET, DELETE and read STATS here.  What differs is the program:
 - **A device fault ends the broker.**  Under XLA a failed program poisons
   its outputs and the tenant's next request raises; on CUDA a fault
   during a kernel leaves the context unusable, so the metering thread
-  exits the process (the daemon restarts brokers).
+  exits the process with ``DEVICE_FAULT_EXIT`` (the daemon restarts
+  brokers).  With a journal the successor recovers every tenant.
+- **A GET waits for its array's own dispatch batch** (``_Ready``), not
+  for everything queued on the card after it, so a tenant that fetches
+  each chain's output keeps the next chain queued behind it.
 
 Scheduling is ``vtpu``'s: per-tenant queues, a dispatcher that
 round-robins over tenants and gates each item on its tenant's token
@@ -62,17 +68,40 @@ bucket in the card's region (priority 0 borrows), at most
 ``busy = min(t_obs - prev_obs, t_obs - t0 - L)``.  The tenant's slot in
 the card's region carries its HELLO grant (HBM cap, core share).
 
+Durability (``vtpu``'s, ported whole): with ``VTPU_JOURNAL_DIR`` (or
+``journal_dir``) every state change is journaled before its ack
+(``runtime/journal.py``): HELLO's binding, a PUT's payload and record,
+a COMPILE's graph, drops (deferred under ``Tenant.mu`` and flushed
+before the reply, an output that replaces a PUT id among them), a
+tenant's close, the metering thread's cost-EMA samples, the card's
+calibration and each boot's epoch.  An execute's outputs are not
+journaled, in ``vtpu`` either: after a restart a tenant gets back its
+PUT arrays, programs, ledger and cost model, and re-sends what its
+executes carried.  A successor replays the journal before its socket
+binds, re-seeds each tenant's slot with its grant and ledger (forced
+admits, so quotas hold from the first instant), and parks it for
+``VTPU_RESUME_GRACE_S``; the client's HELLO with ``resume_epoch``
+adopts it, and its arrays are copied back to the card on the card's
+stream and its graphs vetted and loaded again.  A graph read back from
+the broker's own directory is vetted like one off the wire.  DRAIN
+refuses new HELLOs and snapshots; HANDOVER then exits for the successor;
+RESIZE changes a live tenant's grant and is journaled before its ack.
+TRACE answers from the flight recorder (``VTPU_TRACE=1``,
+``runtime/trace.py``); ``VTPU_FAULTS`` plants faults at the verbs as they
+are read, at ``dispatch`` and at ``reply`` (``runtime/faults.py``); a
+claim of the cards that hangs past ``VTPU_CLAIM_WATCHDOG_S`` exits 3
+with a ``wedge`` record naming the lease holder.
+
 Not here yet, each refused with the ROADMAP item that holds it: the
-journal and handover (DRAIN, HANDOVER, RESIZE, ``VTPU_JOURNAL_DIR``),
-tracing (``VTPU_TRACE=1``; TRACE answers ``enabled: false``), the
 fastlane (FASTBIND), the SLO plane (SLO answers ``enabled: false``),
-migration and replication (MIGRATE*, REPL_SYNC, ``--cluster``).  Also
-left out of this core: rate leases, burst credits, preemption, overload
-shedding, host spill of an oversubscribed tenant, PUT dedup and grants
-over several cards.
+migration and replication (MIGRATE*, REPL_SYNC, ``--cluster``; of
+``replication.py`` only the journal's ``Fence`` is here).  Also left out
+of this core: rate leases, burst credits, preemption, overload shedding,
+host spill of an oversubscribed tenant, PUT dedup and grants over
+several cards.
 
 Run: python -m vtpu_torch.runtime.server --socket /tmp/rt.sock \\
-        --hbm-limit 8Gi --core-limit 50 [--device cpu]
+        --hbm-limit 8Gi --core-limit 50 [--journal-dir DIR] [--device cpu]
 """
 
 from __future__ import annotations
@@ -90,6 +119,7 @@ import re
 import socket
 import socketserver
 import struct
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -101,7 +131,12 @@ from ..shim.core import SharedRegion
 from ..utils import envspec
 from ..utils import logging as log
 from ..utils.dtypes import dtype_name, tensor_bytes, tensor_from_bytes
+from . import faults
 from . import protocol as P
+from . import replication as repl_mod
+from . import timers as timers_mod
+from . import trace as tracing
+from .journal import Journal, JournalCorrupt
 
 MAX_TENANTS = 16
 # Dispatched-but-not-yet-metered items per tenant.
@@ -119,13 +154,10 @@ WAKE_BATCH = max(int(os.environ.get("VTPU_WAKE_BATCH", "32")), 1)
 # A device fault ends the broker with this code (the daemon restarts it).
 DEVICE_FAULT_EXIT = 3
 
-# The sub-items of ROADMAP.md Queue 1 item 6 that hold what this core
+# The sub-items of ROADMAP.md Queue 1 item 6 that hold what this broker
 # refuses.
 _DEFERRED = {
     P.FASTBIND: "6(c), the fastlane",
-    P.DRAIN: "6(b), the journal and handover",
-    P.HANDOVER: "6(b), the journal and handover",
-    P.RESIZE: "6(b), the journal (a resize is journaled)",
     P.MIGRATE: "6(d), migration and replication",
     P.MIGRATE_OUT: "6(d), migration and replication",
     P.MIGRATE_IN: "6(d), migration and replication",
@@ -371,6 +403,20 @@ class Tenant:
         # than the program has outputs.
         self.anon_seq = 0
         self._metered_cache: Optional[Tuple[bool, float]] = None
+        # Output id -> the _Ready of the dispatch batch that made it.
+        self.ready: Dict[str, "_Ready"] = {}
+        # The journal's view (runtime/journal.py): each PUT array's blob
+        # record, each program's blob sha, the drop records deferred
+        # under self.mu (flush_tenant_journal sends them before the
+        # reply), the grant and the client's identity for recovery, and
+        # whether the tenant is parked after a restart for its client.
+        self.blob_meta: Dict[str, dict] = {}
+        self.exe_shas: Dict[str, str] = {}
+        self.pending_journal: List[dict] = []
+        self.grant: Optional[dict] = None
+        self.client_pid: Optional[int] = None
+        self.client_pidns: Optional[int] = None
+        self.recovered = False
 
     def charge_array(self, nbytes: int) -> bool:
         """Admit ``nbytes`` against the slot's cap; False (nothing
@@ -383,11 +429,17 @@ class Tenant:
 
     def drop_array(self, aid: str) -> int:
         """Free one array and its charge; returns its bytes.  Caller
-        holds self.mu."""
+        holds self.mu.  A journaled array's ``del`` record waits in
+        pending_journal (no file I/O under self.mu) for the caller's
+        flush_tenant_journal."""
+        self.ready.pop(aid, None)
         if self.arrays.pop(aid, None) is None:
             return 0
         nbytes = self.nbytes.pop(aid, 0)
         self.release_array(nbytes)
+        if self.blob_meta.pop(aid, None) is not None:
+            self.pending_journal.append({"op": "del", "name": self.name,
+                                         "id": aid})
         return nbytes
 
     def metered_on(self, now: float) -> bool:
@@ -400,13 +452,58 @@ class Tenant:
         return v[0]
 
 
+def flush_tenant_journal(state: "RuntimeState", t: Tenant) -> None:
+    """Append the records a ``t.mu``-guarded section deferred.  Callers
+    run it after releasing ``t.mu`` and BEFORE the reply that
+    acknowledges the change, so once the client sees ok the journal has
+    it.  A failing append is logged, not raised: these are drops, and
+    their callers sit on the dispatcher and teardown paths, where an
+    escaped OSError would stall every tenant; the journal has already
+    truncated back to a clean boundary."""
+    jr = state.journal
+    with t.mu:
+        recs, t.pending_journal = t.pending_journal, []
+    if jr is not None:
+        for rec in recs:
+            try:
+                jr.append(rec)
+            except OSError as e:
+                log.error("journal: dropping deferred %r record for %s "
+                          "(%s)", rec.get("op"), t.name, e)
+
+
+class _Ready:
+    """The completion of one dispatch batch on its card: filled with the
+    event recorded after the batch.  A GET of an output waits for its
+    own batch, not for work queued on the card after it."""
+
+    __slots__ = ("filled", "event")
+
+    def __init__(self):
+        self.filled = threading.Event()
+        self.event: Optional[torch.cuda.Event] = None
+
+    def fill(self, event) -> None:
+        self.event = event
+        self.filled.set()
+
+    def wait(self) -> None:
+        self.filled.wait()
+        if self.event is not None:
+            self.event.synchronize()
+
+
 class WorkItem:
     """One queued EXECUTE: argument ids resolve at dispatch, so a
-    pipelined step may name an earlier step's output."""
+    pipelined step may name an earlier step's output.  ``t_enq`` (its
+    submit), ``t_bucket0`` (its first wait on the token bucket at the
+    queue's head), ``bucket_wait_us`` and the client's trace stamp
+    (``trace_id``, ``trace_ts``) feed its span."""
 
     __slots__ = ("tenant", "session", "exe", "key", "arg_ids", "out_ids",
                  "steps", "carry", "metered", "est_us", "first_run",
-                 "free_ids", "batch", "batch_idx")
+                 "free_ids", "batch", "batch_idx", "t_enq", "t_enq_wall",
+                 "t_bucket0", "bucket_wait_us", "trace_id", "trace_ts")
 
     def __init__(self, tenant, session, exe, key, arg_ids, out_ids,
                  steps=1, carry=(), free_ids=()):
@@ -426,6 +523,12 @@ class WorkItem:
         self.free_ids = tuple(free_ids)
         self.batch: "Optional[_BatchReply]" = None
         self.batch_idx = 0
+        self.t_enq = 0.0
+        self.t_enq_wall = 0.0
+        self.t_bucket0: Optional[float] = None
+        self.bucket_wait_us = 0.0
+        self.trace_id: Optional[str] = None
+        self.trace_ts: Optional[float] = None
 
 
 class _ItemError(Exception):
@@ -503,8 +606,11 @@ class DeviceScheduler:
 
     def submit_many(self, items) -> None:
         """Enqueue items under one lock acquisition and one wake."""
+        now_m, now_w = time.monotonic(), time.time()
         with self.mu:
             for item in items:
+                item.t_enq = now_m
+                item.t_enq_wall = now_w
                 name = item.tenant.name
                 if name not in self.queues:
                     self.queues[name] = collections.deque()
@@ -524,6 +630,18 @@ class DeviceScheduler:
             while self.inflight.get(name, 0) > 0 \
                     and time.monotonic() < deadline:
                 self.mu.wait(timeout=0.1)
+
+    def quiesce_all(self, timeout: float = 30.0) -> bool:
+        """Drain for a handover: wait until every dispatched item has
+        retired (the drain has paused dispatch, so a tenant that keeps
+        sending cannot hold it off).  True when idle."""
+        deadline = time.monotonic() + max(timeout, 0.0)
+        with self.mu:
+            while any(self.inflight.values()):
+                if time.monotonic() >= deadline:
+                    return False
+                self.mu.wait(timeout=0.1)
+        return True
 
     def forget_tenant(self, name: str) -> None:
         with self.mu:
@@ -553,6 +671,7 @@ class DeviceScheduler:
                 with it.tenant.mu:
                     for fid in it.free_ids:
                         it.tenant.drop_array(fid)
+                flush_tenant_journal(self.state, it.tenant)
         return len(purged)
 
     # -- dispatch --
@@ -562,6 +681,8 @@ class DeviceScheduler:
         and the soonest time a throttled one becomes ready."""
         now = time.monotonic()
         soonest = None
+        if self.state.dispatch_paused:
+            return None, None
         if self.queued_est_us >= MAX_QUEUED_US:
             return None, now + 0.01
         n = len(self.rr)
@@ -588,11 +709,17 @@ class DeviceScheduler:
                 wait_ns = self.chip.region.rate_acquire(t.index, int(est),
                                                         t.priority)
                 if wait_ns:
+                    # The item now waits on the bucket, not the queue:
+                    # its bucket phase starts (the first throttle wins).
+                    if item.t_bucket0 is None:
+                        item.t_bucket0 = now
                     nr = now + wait_ns / 1e9
                     self.not_ready_until[name] = nr
                     soonest = nr if soonest is None else min(soonest, nr)
                     continue
             q.popleft()
+            if item.t_bucket0 is not None:
+                item.bucket_wait_us = max(now - item.t_bucket0, 0.0) * 1e6
             item.metered = metered
             item.est_us = est
             item.first_run = (item.steps, item.carry) not in item.exe.warmed
@@ -618,19 +745,31 @@ class DeviceScheduler:
                     self.mu.wait(timeout=timeout)
                     continue
             done = []
+            ready = _Ready()
             with self.chip.context():
-                for item in items:
-                    r = self._dispatch_item(item)
-                    if r is not None:
-                        done.append(r)
+                try:
+                    for item in items:
+                        r = self._dispatch_item(item, ready)
+                        if r is not None:
+                            done.append(r)
+                finally:
+                    # One event after the batch (None on the CPU): what
+                    # the metering waits on and a GET of its outputs.
+                    event = self.chip.record()
+                    ready.fill(event)
             if done:
+                if done[-1][3] is None:
+                    done[-1] = done[-1][:3] + (event,)
                 self._completion_q.put(done)
 
-    def _dispatch_item(self, item: WorkItem):
+    def _dispatch_item(self, item: WorkItem, ready: _Ready):
         """Resolve the arguments, admit the outputs, queue the program on
         the card's stream, register the outputs and reply; returns
-        (item, t0, outputs, event) for the metering thread, or None when
-        the item failed before reaching the device."""
+        (item, t0, outputs, event) for the metering thread, the event
+        the item's own while tracing (None otherwise: the dispatch loop
+        records one after the batch), or None when the item failed
+        before reaching the device."""
+        faults.fire("dispatch")
         t = item.tenant
         t0 = time.monotonic()
         metas = []
@@ -654,7 +793,8 @@ class DeviceScheduler:
             admitted = True
             with torch.inference_mode():
                 outs = item.exe.run(args, item.steps, item.carry)
-            event = self.chip.record()
+            event = (self.chip.record(timing=True)
+                     if self.state.flight.enabled else None)
             with t.mu:
                 for i, o in enumerate(outs):
                     if i < len(item.out_ids):
@@ -666,6 +806,7 @@ class DeviceScheduler:
                     t.drop_array(oid)
                     t.arrays[oid] = o
                     t.nbytes[oid] = m["nbytes"]
+                    t.ready[oid] = ready
                     metas.append({"id": oid, "shape": m["shape"],
                                   "dtype": m["dtype"]})
         except Exception as e:  # noqa: BLE001 - reply with the error
@@ -673,9 +814,16 @@ class DeviceScheduler:
                 t.release_array(need)
             if item.metered:
                 self.chip.region.rate_adjust(t.index, -int(item.est_us))
+            flush_tenant_journal(self.state, t)
             item.session.complete_execute(item, metas, e, 0.0)
+            now = time.monotonic()
+            self._record_span(item, t0, now, 0.0,
+                              error=f"{type(e).__name__}: {e}")
             self._retire_many((item,))
             return None
+        # The drops above (freed ids, an output replacing a PUT id) are
+        # journaled before the reply.
+        flush_tenant_journal(self.state, t)
         item.exe.warmed.add((item.steps, item.carry))
         item.session.complete_execute(item, metas, None, item.est_us)
         return (item, t0, outs, event)
@@ -750,7 +898,10 @@ class DeviceScheduler:
         learn_scale = None if continuous else sparse_batch_learn_scale(
             batch_est, disp_us, len(batch))
         region = self.chip.region
-        for item, t0, _outs, _ev in batch:
+        journal = self.state.journal
+        traced = self.state.flight.enabled
+        ema_recs = []
+        for item, t0, _outs, ev in batch:
             t = item.tenant
             prev_ema = t.cost_ema.get(item.key, 5000.0)
             per_step = None
@@ -782,17 +933,168 @@ class DeviceScheduler:
                 t.cost_ema[item.key] = (prev_ema * 0.7
                                         + min(per_step, prev_ema * 4.0) * 0.3)
             t.executions += item.steps
+            if per_step is not None and journal is not None:
+                # Learned samples are journaled (one write per batch) so
+                # a successor recovers the cost model.
+                ema_recs.append({"op": "ema", "name": t.name,
+                                 "key": item.key,
+                                 "ema": t.cost_ema[item.key],
+                                 "execs": t.executions})
+            if traced:
+                # The item's own completion, from its event's distance
+                # to the batch's last (both timed while tracing).
+                t_ready = t_obs
+                if ev is not None and ev is not event:
+                    t_ready -= max(ev.elapsed_time(event), 0.0) / 1e3
+                self._record_span(item, t0, t_ready, busy_us,
+                                  solo=len(batch) == 1)
+        if ema_recs:
+            try:
+                journal.append_many(ema_recs)
+            except OSError as e:
+                # A cache of learned state: losing a batch costs the
+                # successor one sample; raising would stop the metering.
+                log.warn("journal: dropping %d EMA sample(s) (%s)",
+                         len(ema_recs), e)
         self._retire_many([item for item, _, _, _ in batch])
+
+    # -- tracing (runtime/trace.py) --
+
+    def _record_span(self, item: WorkItem, t_disp: float, t_ready: float,
+                     busy_us: float, error: Optional[str] = None,
+                     solo: bool = True) -> None:
+        """A flight-recorder span of one retired item, with tracing on.
+        Its phases are wall-clock deltas that partition the item's time
+        in the broker (queue + bucket + device == total by
+        construction); the metered ``busy_us`` rides along as the
+        billing view."""
+        fl = self.state.flight
+        if not fl.enabled:
+            return
+        t = item.tenant
+        total_us = max(t_ready - item.t_enq, 0.0) * 1e6
+        bucket_us = min(item.bucket_wait_us, total_us)
+        queue_us = min(max((t_disp - item.t_enq) * 1e6 - bucket_us, 0.0),
+                       total_us - bucket_us)
+        device_us = total_us - bucket_us - queue_us
+        span: Dict[str, Any] = {
+            "ts": item.t_enq_wall,
+            "tenant": t.name, "chip": self.chip.index,
+            "key": item.key, "steps": item.steps,
+            "queue_us": round(queue_us, 1),
+            "bucket_us": round(bucket_us, 1),
+            "device_us": round(device_us, 1),
+            "total_us": round(total_us, 1),
+            "busy_us": round(busy_us, 1),
+            "est_us": round(item.est_us, 1),
+        }
+        if item.trace_id:
+            span["trace"] = item.trace_id
+        if item.trace_ts:
+            # The client's send time: transport and session lag before
+            # the enqueue (the broker's phases start at the enqueue).
+            span["client_lag_us"] = round(
+                max(item.t_enq_wall - float(item.trace_ts), 0.0) * 1e6, 1)
+        if item.first_run:
+            span["first_run"] = True
+        if error is not None:
+            span["error"] = error[:200]
+        # Slow-op eligibility (vtpu's rule): a first run holds program
+        # load, an error never reached the card, and an item of a
+        # multi-item batch shares the batch's observation.
+        est = 0.0 if (item.first_run or error is not None or not solo) \
+            else item.est_us
+        fl.record(t.name, span, est_us=est,
+                  context_fn=lambda: self._slow_context(item))
+
+    def _slow_context(self, item: WorkItem) -> Dict[str, Any]:
+        """A slow-op capture's context: queue depth, bucket level, HBM
+        headroom, co-tenants.  Locks one at a time (scheduler.mu, then
+        the region, then state.mu)."""
+        t = item.tenant
+        with self.mu:
+            qdepth = len(self.queues.get(t.name, ()))
+            inflight = dict(self.inflight)
+            queued_est = self.queued_est_us
+        st = self.chip.region.device_stats(t.index)
+        with self.state.mu:
+            co = sorted(n for n, x in self.state.tenants.items()
+                        if x.chip is self.chip and n != t.name)
+            suspended = t.name in self.state.suspended
+        return {
+            "queue_depth": qdepth,
+            "inflight": inflight,
+            "chip_queued_est_us": round(queued_est, 1),
+            "bucket_level_us": int(self.chip.region.rate_level(t.index)),
+            "hbm_used_bytes": int(st.used_bytes),
+            "hbm_limit_bytes": int(st.limit_bytes),
+            "hbm_headroom_bytes": max(
+                int(st.limit_bytes) - int(st.used_bytes), 0)
+            if st.limit_bytes else -1,
+            "core_limit_pct": int(st.core_limit_pct),
+            "co_tenants": co,
+            "suspended": suspended,
+            "cost_ema_us": round(float(t.cost_ema.get(item.key, 0.0)), 1),
+        }
 
     def stop(self):
         self._stop = True
         self.kick()
 
 
+def _my_pidns() -> int:
+    try:
+        return os.stat("/proc/self/ns/pid").st_ino
+    except OSError:
+        return 0
+
+
+def wedge_report(stage: str, journal: Optional[Journal] = None) -> str:
+    """The claim watchdog's dying words: which claim stage hung and who
+    holds the node's cards, from the lease sidecar; journaled as a
+    ``wedge`` record, which the successor reports at recovery."""
+    diag = tracing.diagnose_lease(exclude_pid=os.getpid())
+    msg = tracing.format_lease_diagnosis(diag)
+    if journal is not None:
+        try:
+            journal.append({"op": "wedge", "stage": stage,
+                            "ts": time.time(), "diagnosis": msg})
+        except Exception as e:  # noqa: BLE001 - dying words, best effort
+            log.warn("cannot journal wedge record: %s", e)
+    return msg
+
+
+def claim_watchdog(stage: str, journal: Optional[Journal] = None):
+    """Arm a deadline around a claim of the cards; returns cancel().
+
+    ``torch.cuda.init()`` and a card's first context can block with no
+    error (a wedged driver, an MPS server that does not answer).  A
+    broker stuck there never binds its socket, or serves HELLOs whose
+    dispatch never runs; exiting 3 lets the daemon restart it.  The log
+    names the lease holder and a ``wedge`` record makes the restart
+    attributable.  ``VTPU_CLAIM_WATCHDOG_S`` bounds the step (default
+    180 s; 0 disables)."""
+    deadline = float(os.environ.get("VTPU_CLAIM_WATCHDOG_S", "180"))
+    done = threading.Event()
+    if deadline <= 0:
+        return done.set
+
+    def _fire():
+        if not done.wait(deadline):
+            log.error("%s wedged for %.0fs; %s; exiting for the daemon to "
+                      "restart the broker", stage, deadline,
+                      wedge_report(stage, journal))
+            os._exit(DEVICE_FAULT_EXIT)
+
+    threading.Thread(target=_fire, daemon=True,
+                     name="vtpu-claim-watchdog").start()
+    return done.set
+
+
 class ChipState:
     """One card: its accounting region (the device axis is the card's
     tenant slots), its stream, its dispatcher and metering threads, and
-    its empty-event round trip."""
+    its empty-event round trip (the journal's, after a restart)."""
 
     def __init__(self, state: "RuntimeState", index: int,
                  device: torch.device, region_path: str):
@@ -805,9 +1107,21 @@ class ChipState:
         self.region.register()
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
-        self.latency_us = self.calibrate_latency_us()
-        log.info("card %d (%s): empty event round trip %.0f us", index,
-                 device, self.latency_us)
+        # GETs of execute outputs copy here, beside the card's stream.
+        self.side = (torch.cuda.Stream(device) if device.type == "cuda"
+                     else None)
+        hint = state.chip_latency_hints.get(index)
+        if hint is not None:
+            self.latency_us = float(hint)
+            log.info("card %d (%s): empty event round trip %.0f us, "
+                     "from the journal", index, device, self.latency_us)
+        else:
+            self.latency_us = self.calibrate_latency_us()
+            log.info("card %d (%s): empty event round trip %.0f us", index,
+                     device, self.latency_us)
+        if state.journal is not None and self.latency_us:
+            state.journal.append({"op": "chip", "index": index,
+                                  "lat_us": self.latency_us})
         self.scheduler = DeviceScheduler(state, self)
 
     @contextlib.contextmanager
@@ -819,12 +1133,13 @@ class ChipState:
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             yield
 
-    def record(self) -> Optional[torch.cuda.Event]:
+    def record(self, timing: bool = False) -> Optional[torch.cuda.Event]:
         """An event after everything queued on the card so far (None on
-        the CPU, whose calls complete before they return)."""
+        the CPU, whose calls complete before they return); ``timing``
+        for one whose distance to another is read."""
         if self.stream is None:
             return None
-        ev = torch.cuda.Event()
+        ev = torch.cuda.Event(enable_timing=timing)
         ev.record(self.stream)
         return ev
 
@@ -845,21 +1160,87 @@ class ChipState:
 
 class RuntimeState:
     """Shared across sessions: the cards, the tenants, the program
-    cache."""
+    cache, the journal and what it recovered, the flight recorder."""
 
     def __init__(self, region_path: str, hbm_limit: int, core_limit: int,
                  min_exec_cost_us: int = 0,
                  work_conserving: Optional[bool] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", journal: Optional[Journal] = None):
+        self.journal = journal
+        self.prev_epoch: Optional[str] = None
+        # name -> (Tenant, resume deadline): tenants recovered from the
+        # journal and parked until their client's resume HELLO.
+        self.recovered: Dict[str, Tuple[Tenant, float]] = {}
+        self.resume_grace = float(os.environ.get("VTPU_RESUME_GRACE_S",
+                                                 "120"))
+        self.recovery = {
+            "recoveries_total": 0,
+            "tenants_recovered": 0,
+            "tenants_readopted": 0,
+            "tenants_dropped_dead": 0,
+            "tenants_dropped_expired": 0,
+            "tenants_dropped_replaced": 0,
+            "arrays_dropped": 0,
+            "corrupt_recoveries": 0,
+            "resume_s_last": 0.0,
+        }
+        self.chip_latency_hints: Dict[int, float] = {}
+        self.draining = False
+        # Set by a drain while it waits for dispatched work and
+        # snapshots: the dispatchers take nothing from the queues.
+        self.dispatch_paused = False
+        self._keeper_stop = threading.Event()
+        # The one timer thread of the keepers (make_server installs it).
+        self.timers: Optional[timers_mod.TimerWheel] = None
+        self.flight = tracing.FlightRecorder()
+        # The previous instance's claim-watchdog record, if any.
+        self.last_wedge: Optional[dict] = None
+        self._journal_state = None
+        if journal is not None:
+            try:
+                self._journal_state = journal.load_state()
+            except JournalCorrupt as e:
+                # Fail closed: no guessed quota state; clients get the
+                # typed VtpuStateLost of a fresh epoch.
+                log.error("journal corrupt (%s); quarantining and booting "
+                          "a fresh epoch", e)
+                journal.quarantine()
+                self.recovery["corrupt_recoveries"] += 1
+        if self._journal_state is not None:
+            st = self._journal_state
+            self.prev_epoch = st.get("epoch")
+            self.recovery["recoveries_total"] = int(
+                st.get("recoveries_total", 0))
+            for k, v in (st.get("chips") or {}).items():
+                try:
+                    if v:
+                        self.chip_latency_hints[int(k)] = float(v)
+                except (TypeError, ValueError):
+                    pass
+            self.last_wedge = st.get("last_wedge")
+            if self.last_wedge:
+                log.warn("the previous broker wedged at %r and exited: %s",
+                         self.last_wedge.get("stage"),
+                         self.last_wedge.get("diagnosis"))
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {device!r} requested but no CUDA "
                                    "card is available (pass device='cpu' to "
                                    "run on the CPU)")
-            self.devices = ([dev] if dev.index is not None else
-                            [torch.device("cuda", i)
-                             for i in range(torch.cuda.device_count())])
+        # The claim: announce this process as the cards' holder before
+        # touching the driver, so a co-claimer's watchdog (and ours) can
+        # name the other.
+        tracing.write_lease_sidecar("cuda init (torch.cuda.init)")
+        if dev.type == "cuda":
+            cancel = claim_watchdog("cuda init (torch.cuda.init)", journal)
+            try:
+                torch.cuda.init()
+                self.devices = ([dev] if dev.index is not None else
+                                [torch.device("cuda", i)
+                                 for i in range(torch.cuda.device_count())])
+            finally:
+                cancel()
         elif dev.type == "cpu":
             self.devices = [dev]
         else:
@@ -884,13 +1265,22 @@ class RuntimeState:
         self.chips: Dict[int, ChipState] = {}
         self.chips_mu = threading.Lock()
         self.chip(0)  # fail fast if the card is gone
+        tracing.write_lease_sidecar("held (broker serving)",
+                                    extra={"epoch": self.epoch})
+        if journal is not None:
+            self._recover_from_journal()
+            # The epoch record goes out before the boot snapshot, so a
+            # crash during the compaction still replays the new epoch.
+            journal.append({"op": "epoch", "epoch": self.epoch})
+            journal.write_snapshot(self._snapshot_dict)
 
     def chip_region_path(self, index: int) -> str:
         return self.region_path if index == 0 \
             else f"{self.region_path}.chip{index}"
 
     def chip(self, index: int) -> ChipState:
-        """The ChipState of a card index, made on first use."""
+        """The ChipState of a card index, made on first use (the card's
+        first context, under the claim watchdog)."""
         if not 0 <= index < len(self.devices):
             raise ValueError(f"INVALID_DEVICE: card {index} not on this node "
                              f"({len(self.devices)} devices)")
@@ -900,27 +1290,300 @@ class RuntimeState:
         with self.chips_mu:
             c = self.chips.get(index)
             if c is None:
-                c = ChipState(self, index, self.devices[index],
-                              self.chip_region_path(index))
+                cancel = claim_watchdog(f"card {index} first context",
+                                        self.journal)
+                try:
+                    c = ChipState(self, index, self.devices[index],
+                                  self.chip_region_path(index))
+                finally:
+                    cancel()
                 self.chips[index] = c
             return c
+
+    # -- the journal: recovery, resume, upkeep, handover --
+
+    def _recover_from_journal(self) -> None:
+        """Rebuild tenants from the replayed journal before the socket
+        binds: drop those whose client pid is provably dead in this pid
+        namespace, re-seed each other's slot with its grant and its HBM
+        ledger (forced admits: the previous instance admitted these
+        bytes), and park it for the resume grace.  Array data and
+        programs come back at the owner's resume HELLO."""
+        st = self._journal_state
+        if not st or not st.get("tenants"):
+            return
+        self.recovery["recoveries_total"] += 1
+        my_ns = _my_pidns()
+        now = time.monotonic()
+        for name, rec in st["tenants"].items():
+            pid, pidns = rec.get("pid"), rec.get("pidns")
+            if pid and (not pidns or int(pidns) == my_ns) \
+                    and not tracing.pid_alive(int(pid)):
+                self.recovery["tenants_dropped_dead"] += 1
+                log.info("journal: dropping tenant %r (client pid %s is "
+                         "dead)", name, pid)
+                continue
+            # Ledger bytes re-applied so far: a failure below hands them
+            # back before the tenant is dropped, or the slot leaks quota.
+            applied: List[Tuple[ChipState, int, int]] = []
+            try:
+                devices = [int(d) for d in rec.get("devices") or [0]]
+                slots = [int(x) for x in rec.get("slots") or []]
+                if len(devices) != 1 or len(slots) != 1:
+                    raise ValueError(f"a grant over cards {devices} (slots "
+                                     f"{slots}); one card per tenant here")
+                chip, slot = self.chip(devices[0]), slots[0]
+                if any(x.index == slot for x in self._parked_on(chip)):
+                    raise ValueError(f"slot {slot} recovered twice")
+                hbm = rec.get("hbm") or []
+                core = rec.get("core")
+                chip.region.reset_slot(slot)
+                chip.region.set_mem_limit(
+                    slot, int(hbm[0]) if hbm and hbm[0] is not None
+                    else self.default_hbm)
+                chip.region.set_core_limit(
+                    slot, int(core) if core is not None
+                    else self.default_core)
+                t = Tenant(name, slot, int(rec.get("priority", 1)),
+                           bool(rec.get("over", False)), chip)
+                if isinstance(rec.get("suspended"), dict) and \
+                        not rec["suspended"].get("auto"):
+                    self.suspended.add(name)
+                t.cost_ema = {str(k): float(v)
+                              for k, v in (rec.get("ema") or {}).items()}
+                t.executions = int(rec.get("execs", 0))
+                t.client_pid = int(pid) if pid else None
+                t.client_pidns = int(pidns) if pidns else None
+                t.grant = {"hbm": list(hbm), "core": core}
+                t.exe_shas = {str(k): str(v) for k, v
+                              in (rec.get("exes") or {}).items()}
+                t.recovered = True
+                for aid, am in (rec.get("arrays") or {}).items():
+                    nb = int(am.get("nbytes", 0))
+                    if am.get("spilled"):
+                        raise ValueError(f"array {aid} was spilled to the "
+                                         "host; no host spill here")
+                    chip.region.mem_acquire(slot, nb, True)
+                    applied.append((chip, slot, nb))
+                    t.nbytes[aid] = nb
+                    t.blob_meta[aid] = dict(am)
+            except Exception as e:  # noqa: BLE001 - skip, don't refuse boot
+                log.warn("journal: cannot recover tenant %r (%s); dropping "
+                         "it", name, e)
+                for c, slot, nb in applied:
+                    c.region.mem_release(slot, nb)
+                self.recovery["tenants_dropped_dead"] += 1
+                continue
+            self.recovered[name] = (t, now + self.resume_grace)
+            self.recovery["tenants_recovered"] += 1
+        log.info("journal: recovered %d tenant(s) from epoch %s (%d dropped "
+                 "as dead); resume grace %.0fs", len(self.recovered),
+                 self.prev_epoch, self.recovery["tenants_dropped_dead"],
+                 self.resume_grace)
+
+    def _parked_on(self, chip: ChipState) -> List[Tenant]:
+        return [e[0] for e in self.recovered.values() if e[0].chip is chip]
+
+    def try_resume(self, name: str, resume_epoch: str) -> Optional[Tenant]:
+        """Adopt a recovered tenant for its client's HELLO, which offers
+        the PREVIOUS broker's epoch; its arrays and programs are back
+        before this returns, so the client's next request sees them."""
+        if self.journal is None or resume_epoch != self.prev_epoch:
+            return None
+        with self.mu:
+            ent = self.recovered.pop(name, None)
+            if ent is None:
+                return None
+            t = ent[0]
+            t.connections += 1
+            self.tenants[name] = t
+        t0 = time.monotonic()
+        self._restore_tenant(t)
+        t.recovered = False
+        self.recovery["tenants_readopted"] += 1
+        self.recovery["resume_s_last"] = round(time.monotonic() - t0, 3)
+        log.info("journal: tenant %r resumed in %.2f s (%d arrays, %d "
+                 "programs, %d EMA keys)", name,
+                 self.recovery["resume_s_last"], len(t.arrays),
+                 len(t.executables), len(t.cost_ema))
+        return t
+
+    def _restore_tenant(self, t: Tenant) -> None:
+        """The journaled arrays back on the tenant's card (copied on the
+        card's stream, like a PUT) and its programs loaded again through
+        the vetting (a graph from the broker's own directory is vetted
+        like one off the wire).  An array whose blob is gone or short
+        releases its ledger."""
+        chip = t.chip
+        for aid, am in list(t.blob_meta.items()):
+            blob = self.journal.get_blob(am.get("sha", ""))
+            expect = int(am.get("nbytes", 0))
+            try:
+                if blob is None or len(blob) != expect:
+                    raise ValueError(f"blob {am.get('sha')} missing or not "
+                                     f"{expect} bytes")
+                host = tensor_from_bytes(blob, am["dtype"], am["shape"])
+                del blob
+                with chip.context():
+                    dev = host.to(chip.device)
+            except Exception as e:  # noqa: BLE001 - drop, keep books true
+                log.warn("journal: cannot restore array %s of %r (%s); "
+                         "releasing its ledger", aid, t.name, e)
+                with t.mu:
+                    nb = t.nbytes.pop(aid, 0)
+                    t.blob_meta.pop(aid, None)
+                t.release_array(nb)
+                self.recovery["arrays_dropped"] += 1
+                continue
+            with t.mu:
+                t.arrays[aid] = dev
+        for eid, sha in list(t.exe_shas.items()):
+            blob = self.journal.get_blob(sha)
+            if blob is None:
+                continue  # the client compiles again
+            try:
+                t.executables[eid] = self.cached_blob(bytes(blob), chip)
+            except Exception as e:  # noqa: BLE001 - best effort
+                log.warn("journal: cannot restore program %s of %r: %s",
+                         eid, t.name, e)
+
+    def _release_recovered(self, t: Tenant, counter: str) -> Optional[dict]:
+        """Drop a parked recovered tenant: its re-applied ledger comes
+        back (the slot recycles).  Returns the close record for the
+        caller to journal once it holds no lock."""
+        for aid in list(t.nbytes):
+            t.release_array(t.nbytes.pop(aid))
+        t.blob_meta.clear()
+        self.recovery[counter] += 1
+        return {"op": "close", "name": t.name} if self.journal else None
+
+    def journal_tick(self) -> None:
+        """The journal's keeper (1 s on the timer wheel): drop parked
+        tenants past the grace and compact the log when due."""
+        now = time.monotonic()
+        expired = []
+        with self.mu:
+            for name, (t, deadline) in list(self.recovered.items()):
+                if now >= deadline:
+                    del self.recovered[name]
+                    expired.append(t)
+        for t in expired:
+            log.info("journal: recovered tenant %r never reconnected within "
+                     "%.0fs; dropping", t.name, self.resume_grace)
+            rec = self._release_recovered(t, "tenants_dropped_expired")
+            if rec is not None:
+                self.journal.append(rec)
+        if self.journal is not None and self.journal.snapshot_due():
+            self.journal.write_snapshot(self._snapshot_dict)
+
+    def _snapshot_dict(self) -> dict:
+        with self.mu:
+            items = list(self.tenants.items()) \
+                + [(n, e[0]) for n, e in self.recovered.items()]
+        tenants = {}
+        for name, t in items:
+            with t.mu:
+                arrays = {aid: dict(am) for aid, am in t.blob_meta.items()}
+            grant = t.grant or {}
+            tenants[name] = {
+                "devices": [t.chip.index],
+                "slots": [t.index],
+                "priority": t.priority,
+                "over": t.oversubscribe,
+                "hbm": grant.get("hbm"),
+                "core": grant.get("core"),
+                "spill": None,
+                "pid": t.client_pid,
+                "pidns": t.client_pidns,
+                "arrays": arrays,
+                "exes": dict(t.exe_shas),
+                "ema": {k: float(v) for k, v in t.cost_ema.items()},
+                "execs": t.executions,
+            }
+            if name in self.suspended:
+                tenants[name]["suspended"] = {"auto": False}
+        with self.chips_mu:
+            chips = {str(i): c.latency_us for i, c in self.chips.items()
+                     if c.latency_us}
+        out = {"version": 1, "epoch": self.epoch,
+               "recoveries_total": self.recovery["recoveries_total"],
+               "tenants": tenants, "chips": chips}
+        if self.last_wedge:
+            out["last_wedge"] = dict(self.last_wedge)
+        return out
+
+    def journal_stats(self) -> dict:
+        out: Dict[str, Any] = {"enabled": self.journal is not None,
+                               "draining": self.draining,
+                               "epoch": self.epoch}
+        if self.last_wedge:
+            out["last_wedge"] = dict(self.last_wedge)
+        out.update(self.recovery)
+        with self.mu:
+            out["tenants_awaiting_resume"] = len(self.recovered)
+        if self.journal is not None:
+            out.update(self.journal.stats())
+        return out
+
+    def timer_stats(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"enabled": self.timers is not None}
+        if self.timers is not None:
+            out["wheel"] = self.timers.stats()
+        return out
+
+    def drain(self, timeout: float = 30.0, resume: bool = True) -> int:
+        """Prepare a handover: refuse new HELLOs (DRAINING: clients retry
+        against the successor), pause dispatch, wait for the dispatched
+        work to retire, commit a final snapshot.  Dispatch then goes on
+        (``resume``, DRAIN) or stays paused for the exit (HANDOVER): the
+        queued executes die unreplied with the process and their clients
+        send them to the successor.  ``vtpu`` dispatches on during its
+        drain and waits for the queues to empty, which a tenant that
+        keeps sending holds off until the timeout.  Returns the number
+        of tenants the snapshot carries."""
+        self.draining = True
+        self.dispatch_paused = True
+        deadline = time.monotonic() + max(timeout, 0.0)
+        with self.chips_mu:
+            chips = list(self.chips.values())
+        try:
+            for chip in chips:
+                chip.scheduler.quiesce_all(
+                    max(deadline - time.monotonic(), 0.0))
+            if self.journal is not None:
+                self.journal.write_snapshot(self._snapshot_dict)
+        finally:
+            if resume:
+                self.dispatch_paused = False
+                for chip in chips:
+                    chip.scheduler.kick()
+        with self.mu:
+            return len(self.tenants) + len(self.recovered)
 
     def tenant(self, name: str, priority: int, oversubscribe: bool = False,
                device: int = 0, hbm_limit: Optional[int] = None,
                core_limit: Optional[int] = None) -> Tuple[Tenant, bool]:
         """Bind a connection to a tenant; (tenant, created).  A new
         tenant's slot is reset and seeded with its grant (the first
-        HELLO's wins for the tenant's life)."""
+        HELLO's wins for the tenant's life).  A plain HELLO under the
+        name of a parked recovered tenant starts fresh: the parked
+        ledger is released first."""
         chip = self.chip(device)
         created = False
+        deferred_close = None
         with self.mu:
+            ent = self.recovered.pop(name, None)
+            if ent is not None:
+                deferred_close = self._release_recovered(
+                    ent[0], "tenants_dropped_replaced")
             t = self.tenants.get(name)
             if t is not None and t.chip is not chip:
                 raise ValueError(f"INVALID_DEVICE: tenant {name!r} is bound "
                                  f"to card {t.chip.index}")
             if t is None:
-                used = {x.index for x in self.tenants.values()
-                        if x.chip is chip}
+                # Parked tenants keep their slots (and live ledgers).
+                used = {x.index for x in list(self.tenants.values())
+                        + self._parked_on(chip) if x.chip is chip}
                 index = next((i for i in range(MAX_TENANTS)
                               if i not in used), None)
                 if index is None:
@@ -937,11 +1600,20 @@ class RuntimeState:
                 self.tenants[name] = t
                 created = True
             t.connections += 1
+        if deferred_close is not None:
+            try:
+                self.journal.append(deferred_close)
+            except OSError as e:
+                # The superseding bind record follows; replay re-creates
+                # then re-binds the name.
+                log.error("journal: close record of the parked %s lost "
+                          "(%s)", name, e)
         return t, created
 
     def release_tenant(self, t: Tenant) -> bool:
         """Drop one connection; True when the last one is gone and the
-        tenant's state is to be torn down (its slot recycles)."""
+        tenant's state is to be torn down (its slot recycles).  The
+        close record is journaled before the arrays drop."""
         with self.mu:
             t.connections -= 1
             if t.connections > 0:
@@ -954,7 +1626,14 @@ class RuntimeState:
                 return False  # a reconnect took it over meanwhile
             self.tenants.pop(t.name, None)
             t.chip.scheduler.forget_tenant(t.name)
+            self.flight.forget(t.name)
             self.suspended.discard(t.name)
+        if self.journal is not None:
+            try:
+                self.journal.append({"op": "close", "name": t.name})
+            except OSError as e:
+                log.error("journal: close record for %s lost (%s)", t.name,
+                          e)
         return True
 
     def cached_blob(self, blob: bytes, chip: ChipState) -> Program:
@@ -978,16 +1657,50 @@ class RuntimeState:
             chip.scheduler.stop()
 
 
+def resize_tenant(t: Tenant, hbm_limit: Optional[int] = None,
+                  core_limit: Optional[int] = None) -> dict:
+    """Live resize of a tenant's grant (admin RESIZE): re-seed its slot's
+    limits.  An HBM shrink applies to new admissions at once; bytes
+    already past the new cap stay until freed (nothing is evicted from
+    under a running program).  The dispatcher's cached metering verdict
+    is cleared so a share change bites now.  Returns the journal record,
+    which the caller appends before its ack, holding no lock."""
+    region, slot = t.chip.region, t.index
+    if hbm_limit is not None:
+        region.set_mem_limit(slot, int(hbm_limit))
+    if core_limit is not None:
+        region.set_core_limit(slot, int(core_limit))
+    st = region.device_stats(slot)
+    new_hbm, new_core = [int(st.limit_bytes)], int(st.core_limit_pct)
+    t.grant = {"hbm": new_hbm, "core": new_core}
+    with t.chip.scheduler.mu:
+        t._metered_cache = None
+    return {"op": "resize", "name": t.name, "hbm": new_hbm,
+            "core": new_core}
+
+
 # -- sessions ------------------------------------------------------------------
 
 def _stats_reply(state: RuntimeState) -> Dict[str, Any]:
     return {"ok": True, "tenants": collect_stats(state),
-            "pool": dict(state.pool_stats)}
+            "journal": state.journal_stats(),
+            "pool": dict(state.pool_stats),
+            "timers": state.timer_stats()}
+
+
+def _trace_reply(state: RuntimeState, msg) -> Dict[str, Any]:
+    """TRACE, bind-free on both sockets: the flight recorder's spans and
+    slow-op captures (``enabled: false`` and no tenant with tracing
+    off)."""
+    t_arg = msg.get("tenant")
+    return {"ok": True, "enabled": state.flight.enabled,
+            "tenants": state.flight.snapshot(
+                tenant=str(t_arg) if t_arg else None,
+                limit=int(msg.get("limit", 0) or 0))}
 
 
 def _disabled_reply() -> Dict[str, Any]:
-    """TRACE and SLO: ``vtpu``'s answer with tracing and the SLO plane
-    off."""
+    """SLO: ``vtpu``'s answer with the SLO plane off."""
     return {"ok": True, "enabled": False, "tenants": {}}
 
 
@@ -1003,6 +1716,7 @@ class TenantSession(socketserver.BaseRequestHandler):
         self._pool = P.RecvPool(stats=self.state.pool_stats)
 
     def _send(self, msg) -> None:
+        faults.fire("reply")
         with self.send_mu:
             P.send_msg(self.request, msg)
 
@@ -1040,6 +1754,12 @@ class TenantSession(socketserver.BaseRequestHandler):
                 self._cleanup(t)
 
     def _hello(self, msg, tenant_box) -> None:
+        if self.state.draining:
+            # A handover is under way: the successor takes new bindings;
+            # clients retry.
+            self._send_err("DRAINING", "broker is draining for handover; "
+                           "retry")
+            return
         devs = msg.get("devices")
         if devs and len(devs) > 1:
             self._send_err("INVALID_DEVICE", "a tenant holds one card here; "
@@ -1047,22 +1767,56 @@ class TenantSession(socketserver.BaseRequestHandler):
             return
         hbm = msg.get("hbm_limit")
         core = msg.get("core_limit")
-        try:
-            tenant, created = self.state.tenant(
-                str(msg["tenant"]), int(msg.get("priority", 1)),
-                bool(msg.get("oversubscribe", False)),
-                device=int(devs[0] if devs else msg.get("device", 0)),
-                hbm_limit=int(hbm) if hbm is not None else None,
-                core_limit=int(core) if core is not None else None)
-        except SlotsExhausted as e:
-            self._send({"ok": False, "code": "OVERLOAD", "error": str(e),
-                        "retry_ms": 200})
-            return
+        created = False
+        tenant = None
+        r_epoch = msg.get("resume_epoch")
+        if r_epoch is not None:
+            # A reconnect after a restart or handover: adopt the tenant
+            # recovered from the journal, state intact.
+            tenant = self.state.try_resume(str(msg["tenant"]), str(r_epoch))
+        resumed = tenant is not None
+        if tenant is None:
+            try:
+                tenant, created = self.state.tenant(
+                    str(msg["tenant"]), int(msg.get("priority", 1)),
+                    bool(msg.get("oversubscribe", False)),
+                    device=int(devs[0] if devs else msg.get("device", 0)),
+                    hbm_limit=int(hbm) if hbm is not None else None,
+                    core_limit=int(core) if core is not None else None)
+            except SlotsExhausted as e:
+                self._send({"ok": False, "code": "OVERLOAD",
+                            "error": str(e), "retry_ms": 200})
+                return
+        # tenant_box first: if the bind record's append fails, teardown
+        # still releases the connection this HELLO took.
         tenant_box[0] = tenant
+        self._journal_bind(tenant, msg)
         self._send({"ok": True, "tenant_index": tenant.index,
                     "chip": tenant.chip.index, "chips": [tenant.chip.index],
                     "epoch": self.state.epoch, "created": created,
-                    "resumed": False})
+                    "resumed": resumed})
+
+    def _journal_bind(self, t: Tenant, msg) -> None:
+        """Journal a binding (creation, reconnect or resume): the grant's
+        shape and the client's identity, for recovery."""
+        jr = self.state.journal
+        if jr is None:
+            return
+        pid, pidns = msg.get("pid"), msg.get("pidns")
+        if pid:
+            t.client_pid = int(pid)
+        if pidns:
+            t.client_pidns = int(pidns)
+        if t.grant is None:
+            st = t.chip.region.device_stats(t.index)
+            t.grant = {"hbm": [int(st.limit_bytes)],
+                       "core": int(st.core_limit_pct)}
+        jr.append({"op": "bind", "name": t.name,
+                   "devices": [t.chip.index], "slots": [t.index],
+                   "priority": t.priority, "over": t.oversubscribe,
+                   "hbm": t.grant.get("hbm"), "core": t.grant.get("core"),
+                   "spill": None, "pid": t.client_pid,
+                   "pidns": t.client_pidns})
 
     def _serve(self, sock, tenant_box):  # noqa: C901 - protocol dispatch
         while True:
@@ -1072,6 +1826,10 @@ class TenantSession(socketserver.BaseRequestHandler):
                 break
             kind = msg.get("kind")
             tenant = tenant_box[0]
+            # Fired outside the dispatch try: an injected ConnectionError
+            # takes the real peer-died path (the loop ends, teardown
+            # runs).
+            faults.fire(str(kind))
             try:
                 if kind == P.HELLO:
                     if tenant is not None:
@@ -1089,7 +1847,8 @@ class TenantSession(socketserver.BaseRequestHandler):
                 if kind in (P.TRACE, P.SLO):
                     if tenant is not None:
                         self._drain()
-                    self._send(_disabled_reply())
+                    self._send(_trace_reply(self.state, msg)
+                               if kind == P.TRACE else _disabled_reply())
                     continue
                 if tenant is None:
                     self._send_err("NO_HELLO", "hello required")
@@ -1113,11 +1872,21 @@ class TenantSession(socketserver.BaseRequestHandler):
                         ids = [msg["id"]]
                     with tenant.mu:
                         freed = sum(tenant.drop_array(str(a)) for a in ids)
+                    flush_tenant_journal(self.state, tenant)
                     self._send({"ok": True, "freed": freed})
                 elif kind == P.COMPILE:
-                    prog = self.state.cached_blob(bytes(msg["exported"]),
-                                                  tenant.chip)
-                    tenant.executables[str(msg["id"])] = prog
+                    blob = bytes(msg["exported"])
+                    prog = self.state.cached_blob(blob, tenant.chip)
+                    eid = str(msg["id"])
+                    tenant.executables[eid] = prog
+                    jr = self.state.journal
+                    if jr is not None:
+                        # The graph as the tenant sent it: a resumed
+                        # tenant's programs load again under their ids.
+                        jr.put_blob(blob, sha=prog.sha)
+                        tenant.exe_shas[eid] = prog.sha
+                        jr.append({"op": "compile", "name": tenant.name,
+                                   "id": eid, "sha": prog.sha})
                     self._send({"ok": True})
                 elif kind == P.STATS:
                     tenant.chip.scheduler.quiesce(tenant.name)
@@ -1185,6 +1954,8 @@ class TenantSession(socketserver.BaseRequestHandler):
             # Replacement semantics: the old copy goes before the quota
             # check, so an exact-fit re-PUT succeeds.
             tenant.drop_array(aid)
+        flush_tenant_journal(self.state, tenant)
+        with tenant.mu:
             if not tenant.charge_array(nbytes):
                 free, total = chip.region.mem_info(tenant.index)
                 raise MemoryError(
@@ -1199,19 +1970,47 @@ class TenantSession(socketserver.BaseRequestHandler):
         with tenant.mu:
             tenant.arrays[aid] = dev
             tenant.nbytes[aid] = nbytes
+        jr = self.state.journal
+        if jr is not None:
+            # The payload and the ledger entry, before the ack: once the
+            # client sees ok, the array survives a broker crash.
+            flat = tensor_bytes(host)
+            sha = jr.put_blob(flat, sha=hashlib.sha256(flat).hexdigest())
+            rec = {"op": "put", "name": tenant.name, "id": aid, "sha": sha,
+                   "shape": list(host.shape),
+                   "dtype": dtype_name(host.dtype),
+                   "nbytes": nbytes, "charges": [[0, nbytes]],
+                   "spilled": False}
+            with tenant.mu:
+                tenant.blob_meta[aid] = {k: rec[k] for k in (
+                    "sha", "shape", "dtype", "nbytes", "charges",
+                    "spilled")}
+            jr.append(rec)
         self._send({"ok": True, "nbytes": nbytes, "spilled": False})
 
     def _get(self, sock, tenant: Tenant, msg) -> None:
         aid = str(msg["id"])
         with tenant.mu:
             dev = tenant.arrays.get(aid)
+            ready = tenant.ready.get(aid)
         if dev is None:
             self._send_err("NOT_FOUND", aid)
             return
-        # Copied on the card's stream: ordered after every item queued
-        # before it.
-        with tenant.chip.context():
-            host = dev.to("cpu")
+        chip = tenant.chip
+        if ready is not None and chip.stream is not None:
+            # An execute's output: wait for its own dispatch batch, then
+            # copy beside the card's stream, so the work queued after it
+            # runs on meanwhile.
+            ready.wait()
+            dev.record_stream(chip.side)
+            with torch.cuda.device(chip.device), \
+                    torch.cuda.stream(chip.side):
+                host = dev.to("cpu")
+        else:
+            # A PUT array: copied on the card's stream, ordered after
+            # every item queued before it.
+            with chip.context():
+                host = dev.to("cpu")
         flat = tensor_bytes(host)
         nbytes = len(flat)
         hdr = {"ok": True, "shape": list(host.shape),
@@ -1233,7 +2032,7 @@ class TenantSession(socketserver.BaseRequestHandler):
 
     # -- the execute path --
 
-    def _build_item(self, t: Tenant, spec) -> WorkItem:
+    def _build_item(self, t: Tenant, spec, trace=None) -> WorkItem:
         """One execute body ({exe, args, outs, repeats?, carry?, free?})
         as a WorkItem; raises _ItemError with the typed code."""
         prog = t.executables.get(str(spec["exe"]))
@@ -1252,11 +2051,22 @@ class TenantSession(socketserver.BaseRequestHandler):
                    or not 0 <= p[1] < n_args]
             if bad:
                 raise _ItemError("BAD_CARRY", f"invalid carry map {bad}")
-        return WorkItem(t, self, prog, str(spec["exe"]),
+        item = WorkItem(t, self, prog, str(spec["exe"]),
                         [str(a) for a in spec["args"]],
                         [str(x) for x in spec.get("outs", [])],
                         steps=steps, carry=carry,
                         free_ids=[str(f) for f in spec.get("free", ())])
+        if isinstance(trace, dict):
+            # The client's stamp (VTPU_TRACE): its id threads through to
+            # the span.
+            tid = trace.get("id")
+            item.trace_id = str(tid) if tid else None
+            try:
+                item.trace_ts = (float(trace["ts"]) if "ts" in trace
+                                 else None)
+            except (TypeError, ValueError):
+                pass
+        return item
 
     def _reserve_pending(self, n: int) -> None:
         with self.pending_cond:
@@ -1266,7 +2076,7 @@ class TenantSession(socketserver.BaseRequestHandler):
 
     def _enqueue_execute(self, t: Tenant, msg) -> None:
         try:
-            item = self._build_item(t, msg)
+            item = self._build_item(t, msg, trace=msg.get("trace"))
         except _ItemError as e:
             self._drain()
             self._send_err(e.code, e.msg)
@@ -1285,7 +2095,7 @@ class TenantSession(socketserver.BaseRequestHandler):
         prefail: List[Tuple[int, dict]] = []
         for i, spec in enumerate(specs):
             try:
-                item = self._build_item(t, spec)
+                item = self._build_item(t, spec, trace=msg.get("trace"))
             except _ItemError as e:
                 prefail.append((i, {"ok": False, "code": e.code,
                                     "error": e.msg}))
@@ -1348,15 +2158,22 @@ class TenantSession(socketserver.BaseRequestHandler):
         with t.mu:
             for aid in list(t.arrays):
                 t.drop_array(aid)
+            # The close record, journaled before, covers these drops; a
+            # late one could land after a new tenant's bind of the name.
+            t.pending_journal.clear()
         t.executables.clear()
 
 
 def collect_stats(state: RuntimeState) -> Dict[str, Dict[str, Any]]:
-    """Each tenant's row: ``vtpu``'s keys for what this core has, and
-    ``busy_us``, the device time metered to the tenant's slot."""
+    """Each tenant's row: ``vtpu``'s keys for what this broker has,
+    ``busy_us``, the device time metered to the tenant's slot, and
+    ``recovered``.  A tenant recovered from the journal and parked for
+    its client has a row too (``recovered`` true, its ledger already
+    re-applied); ``vtpu`` lists bound tenants only."""
     out = {}
     with state.mu:
-        tenants = list(state.tenants.items())
+        tenants = list(state.tenants.items()) + [
+            (n, e[0]) for n, e in state.recovered.items()]
     for name, t in tenants:
         st = t.chip.region.device_stats(t.index)
         out[name] = {
@@ -1371,7 +2188,8 @@ def collect_stats(state: RuntimeState) -> Dict[str, Dict[str, Any]]:
                           "limit_bytes": int(st.limit_bytes),
                           "peak_bytes": int(st.peak_bytes)}],
             "core_limit_pct": int(st.core_limit_pct),
-            "arrays": len(t.arrays),
+            "arrays": len(t.blob_meta) if t.recovered else len(t.arrays),
+            "recovered": bool(t.recovered),
             # No host spill in this core: an oversubscribed tenant's
             # arrays stay on the card.
             "host_spill_bytes": 0,
@@ -1387,8 +2205,8 @@ def collect_stats(state: RuntimeState) -> Dict[str, Dict[str, Any]]:
 
 class AdminSession(socketserver.BaseRequestHandler):
     """The host-side admin socket (``<socket>.admin``, never mounted into
-    a container): STATS, SUSPEND, RESUME, SHUTDOWN, with TRACE and SLO
-    disabled; the broker's uid and root only."""
+    a container): STATS, TRACE, SUSPEND, RESUME, RESIZE, DRAIN, HANDOVER,
+    SHUTDOWN, with SLO disabled; the broker's uid and root only."""
 
     state: RuntimeState  # set by make_server
 
@@ -1434,17 +2252,69 @@ class AdminSession(socketserver.BaseRequestHandler):
                         chips = list(self.state.chips.values())
                     for chip in chips:
                         chip.scheduler.kick()
+                    jr = self.state.journal
+                    if jr is not None:
+                        # A crash must not unfreeze a suspended tenant.
+                        jr.append({"op": "suspend" if kind == P.SUSPEND
+                                   else "resume", "name": name,
+                                   "auto": False})
                     log.info("admin: %s tenant %r (known=%s)", kind, name,
                              known)
                     P.send_msg(self.request, {"ok": True, "known": known})
+                elif kind == P.RESIZE:
+                    name = str(msg["tenant"])
+                    hbm = msg.get("hbm_limit")
+                    hbms = msg.get("hbm_limits")
+                    core = msg.get("core_limit")
+                    with self.state.mu:
+                        t_obj = self.state.tenants.get(name)
+                        if t_obj is None and name in self.state.recovered:
+                            # A parked tenant resizes too: its resume
+                            # adopts the new grant.
+                            t_obj = self.state.recovered[name][0]
+                    if t_obj is None:
+                        P.reply_err(self.request, "NOT_FOUND",
+                                    f"tenant {name!r} is not bound")
+                        continue
+                    if hbms is not None and hbm is None:
+                        hbm = hbms[0]
+                    rec = resize_tenant(
+                        t_obj, int(hbm) if hbm is not None else None,
+                        int(core) if core is not None else None)
+                    # Journaled before the ack: once the operator sees ok
+                    # the new grant survives a crash.
+                    if self.state.journal is not None:
+                        self.state.journal.append(rec)
+                    for chip in self.state.chips.values():
+                        chip.scheduler.kick()
+                    log.info("admin: RESIZE tenant %r hbm=%s core=%s", name,
+                             rec["hbm"], rec["core"])
+                    P.send_msg(self.request, {"ok": True, "tenant": name,
+                                              "hbm": rec["hbm"],
+                                              "core": rec["core"]})
                 elif kind == P.STATS:
                     with self.state.mu:
                         suspended = sorted(self.state.suspended)
                     rep = _stats_reply(self.state)
                     rep["suspended"] = suspended
                     P.send_msg(self.request, rep)
-                elif kind in (P.TRACE, P.SLO):
+                elif kind == P.TRACE:
+                    P.send_msg(self.request, _trace_reply(self.state, msg))
+                elif kind == P.SLO:
                     P.send_msg(self.request, _disabled_reply())
+                elif kind in (P.DRAIN, P.HANDOVER):
+                    # Quiesce and a final snapshot; HANDOVER then exits,
+                    # and the successor recovers the journal.
+                    n = self.state.drain(float(msg.get("timeout", 30.0)),
+                                         resume=kind == P.DRAIN)
+                    P.send_msg(self.request, {
+                        "ok": True, "tenants": n,
+                        "snapshotted": self.state.journal is not None})
+                    if kind == P.HANDOVER:
+                        cb = getattr(self.state, "shutdown_cb", None)
+                        if cb is not None:
+                            threading.Thread(target=cb, daemon=True).start()
+                        return
                 elif kind == P.SHUTDOWN:
                     P.send_msg(self.request, {"ok": True})
                     cb = getattr(self.state, "shutdown_cb", None)
@@ -1467,6 +2337,13 @@ class _Server(socketserver.ThreadingUnixStreamServer):
     admin_server: "Optional[_Server]" = None
 
     def shutdown(self):
+        st = getattr(self, "state", None)
+        if st is not None:
+            st._keeper_stop.set()  # noqa: SLF001 - the lifecycle's owner
+            if st.timers is not None:
+                st.timers.stop()
+            # Removes the sidecar only if this process wrote it.
+            tracing.clear_lease_sidecar()
         if self.admin_server is not None:
             self.admin_server.shutdown()
         super().shutdown()
@@ -1476,28 +2353,49 @@ class _Server(socketserver.ThreadingUnixStreamServer):
             self.admin_server.server_close()
         st = getattr(self, "state", None)
         if st is not None:
+            if st.timers is not None:
+                st.timers.stop()
             st.stop()
         super().server_close()
 
 
 def refuse_deferred_env(env=os.environ) -> None:
-    """Raise for an environment that asks for a module not ported yet."""
-    if env.get("VTPU_JOURNAL_DIR"):
-        raise RuntimeError(deferred("VTPU_JOURNAL_DIR (crash recovery)",
-                                    "6(b), the journal and handover"))
-    if env.get("VTPU_TRACE", "0") not in ("", "0"):
-        raise RuntimeError(deferred("VTPU_TRACE (the flight recorder)",
-                                    "6(b), tracing"))
+    """Raise for an environment that asks the broker for a module not
+    ported yet: the fastlane's lanes (``VTPU_FASTLANE=1``) or the SLO
+    plane (``VTPU_SLO=1``; ``vtpu`` runs it unless ``VTPU_SLO=0``)."""
+    if env.get("VTPU_FASTLANE", "0") not in ("", "0"):
+        raise RuntimeError(deferred("VTPU_FASTLANE (the fastlane's lanes)",
+                                    "6(c), the fastlane"))
+    if env.get("VTPU_SLO", "0") not in ("", "0"):
+        raise RuntimeError(deferred("VTPU_SLO (the SLO plane)",
+                                    "6(d), the SLO plane"))
+
+
+def _journal_tick(state: RuntimeState) -> None:
+    if not state._keeper_stop.is_set():  # noqa: SLF001 - its owner
+        state.journal_tick()
+
+
+def _lease_tick(state: RuntimeState) -> None:
+    """The lease sidecar's heartbeat (5 s): its mtime is the liveness a
+    co-claimer's watchdog and ``vtpu-smi leases`` read; a killed broker
+    stops beating and its sidecar goes stale."""
+    if not state._keeper_stop.is_set():  # noqa: SLF001 - its owner
+        tracing.heartbeat_lease_sidecar()
 
 
 def make_server(socket_path: str, hbm_limit: int, core_limit: int,
                 region_path: Optional[str] = None,
                 min_exec_cost_us: int = 0,
                 work_conserving: Optional[bool] = None,
-                device: str = "cuda") -> _Server:
+                device: str = "cuda",
+                journal_dir: Optional[str] = None) -> _Server:
     """The tenant socket at ``socket_path`` and the admin socket beside
     it, not yet serving (call ``serve_forever``).  ``device`` is "cuda"
-    (every card; raises when there is none), "cuda:<i>" or "cpu"."""
+    (every card; raises when there is none), "cuda:<i>" or "cpu".
+    ``journal_dir`` (else ``VTPU_JOURNAL_DIR``) turns on the journal and
+    recovers what it holds before the socket binds; an unusable
+    directory is logged and the broker runs without one."""
     refuse_deferred_env()
     if os.path.exists(socket_path):
         os.unlink(socket_path)
@@ -1508,8 +2406,32 @@ def make_server(socket_path: str, hbm_limit: int, core_limit: int,
     for stale in [rpath] + glob.glob(rpath + ".chip*"):
         if os.path.exists(stale):
             os.unlink(stale)
+    jdir = journal_dir if journal_dir is not None \
+        else (os.environ.get("VTPU_JOURNAL_DIR") or None)
+    jr = None
+    if jdir:
+        try:
+            jr = Journal(jdir)
+        except OSError as e:
+            log.error("journal dir %s unusable (%s); running WITHOUT crash "
+                      "recovery", jdir, e)
+    if jr is not None:
+        # The epoch fence: a generation claimed at boot and checked before
+        # every append, so a superseded instance can never journal (and
+        # so never ack).
+        fence = repl_mod.Fence(socket_path + ".fence")
+        fence.claim()
+        jr.fence = fence.check
     state = RuntimeState(rpath, hbm_limit, core_limit, min_exec_cost_us,
-                         work_conserving, device=device)
+                         work_conserving, device=device, journal=jr)
+    # One timer thread for the keepers, on harmonic grids.
+    state.timers = timers_mod.TimerWheel()
+    if jr is not None:
+        state.timers.add_periodic("journal", 1.0,
+                                  lambda: _journal_tick(state))
+    state.timers.add_periodic("lease-heartbeat",
+                              tracing.LEASE_HEARTBEAT_S,
+                              lambda: _lease_tick(state))
     handler = type("BoundSession", (TenantSession,), {"state": state})
     srv = _Server(socket_path, handler)
     srv.state = state  # type: ignore[attr-defined]
@@ -1546,6 +2468,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--region", default=None)
     p.add_argument("--device", default="cuda",
                    help="cuda (every card), cuda:<i>, or cpu")
+    p.add_argument("--journal-dir", default=None,
+                   help="the crash-safe journal's directory (default "
+                        "VTPU_JOURNAL_DIR; unset: no recovery)")
     p.add_argument("--cluster", default=None,
                    help="refused: " + deferred("the federation",
                                                "6(d), the cluster"))
@@ -1557,7 +2482,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                       ns.min_exec_cost_us,
                       work_conserving=(None if ns.work_conserving is None
                                        else bool(ns.work_conserving)),
-                      device=ns.device)
+                      device=ns.device, journal_dir=ns.journal_dir)
     log.info("vtpu-runtime serving on %s (hbm=%d core=%d%%, %s)", ns.socket,
              hbm, ns.core_limit, ns.device)
     try:
@@ -1566,6 +2491,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         pass
     finally:
         srv.server_close()
+        # K1's launches in this process, by route: the record of what
+        # this instance ran (a killed instance writes none).
+        print("vtpu-runtime: K1 launches " + json.dumps(
+            _fa.flash_attention.route_launches), file=sys.stderr,
+            flush=True)
     return 0
 
 

@@ -11,13 +11,19 @@ pod's region.  It never takes a slot in a region.
   vtpu-smi --json                            # machine-readable
   vtpu-smi --sweep-host                      # free dead host pids' slots
   vtpu-smi metricsd [HOST:PORT]              # what a pod's metricsd says
+  vtpu-smi trace [TENANT] --broker SOCK [--dump chrome.json]
+  vtpu-smi leases [--lease-file PATH]        # who holds the node's cards
+  vtpu-smi --broker SOCK --broker-stats      # and --suspend/--resume T,
+                                             # --resize T --hbm Q --core P,
+                                             # --drain, --handover, --shutdown
 
-The broker's sub-commands wait for their modules: ``trace`` and
-``leases`` for ROADMAP Queue 1 item 6(b), ``top`` and ``cluster`` for
-6(d); so do its admin flags (``--broker`` and its verbs, with DRAIN and
-HANDOVER), for 6(b); the analyzers (``analyze``, ``mc``, ``wmm``, ``dmc``,
-``chaos``) for item 7.  Each is refused with a message that names its
-item, never silently absent.
+``trace`` reads the broker's flight recorder over its main socket
+(bind-free, like STATS); the admin verbs go to ``SOCK.admin``.  What
+waits for its module is refused with a message that names its ROADMAP
+Queue 1 item, never silently absent: ``top`` and ``cluster``, and the
+admin flags ``--migrate``, ``--device``, ``--migrate-to``, ``--chips`` and
+``--repl-status``, for 6(d); the analyzers (``analyze``, ``mc``, ``wmm``,
+``dmc``, ``chaos``) for item 7.
 
 Run as: python -m vtpu_torch.tools.vtpu_smi
 """
@@ -38,14 +44,11 @@ TITLE = "| vtpu-smi — vGPU quota monitor"
 
 # Sub-commands of vtpu's that are not ported yet: name -> ROADMAP Queue 1
 # item.
-REFUSED_COMMANDS = {"trace": "6(b)", "leases": "6(b)", "top": "6(d)",
-                    "cluster": "6(d)", "analyze": "7", "mc": "7", "wmm": "7",
-                    "dmc": "7", "chaos": "7"}
-# The broker's admin surface: flags with a value, and switches.
-BROKER_FLAGS = ("--broker", "--suspend", "--resume", "--resize", "--hbm",
-                "--core", "--migrate", "--device", "--migrate-to", "--chips")
-BROKER_SWITCHES = ("--repl-status", "--broker-stats", "--drain",
-                   "--handover", "--shutdown")
+REFUSED_COMMANDS = {"top": "6(d)", "cluster": "6(d)", "analyze": "7",
+                    "mc": "7", "wmm": "7", "dmc": "7", "chaos": "7"}
+# The broker's admin flags that wait for migration and replication.
+REFUSED_FLAGS = ("--migrate", "--device", "--migrate-to", "--chips")
+REFUSED_SWITCHES = ("--repl-status",)
 
 
 def refusal(what: str, item: str) -> str:
@@ -139,6 +142,123 @@ def render(infos: List[Dict]) -> str:
     return "\n".join(lines)
 
 
+def request(path: str, msg: dict, timeout: float = 10.0) -> dict:
+    """One request and its reply over a broker socket (bind-free STATS
+    and TRACE on the main one, the admin verbs on ``<socket>.admin``)."""
+    import socket as socketmod
+
+    from ..runtime import protocol as P
+    s = socketmod.socket(socketmod.AF_UNIX, socketmod.SOCK_STREAM)
+    s.settimeout(timeout)
+    try:
+        s.connect(path)
+        P.send_msg(s, msg)
+        return P.recv_msg(s)
+    finally:
+        s.close()
+
+
+def cmd_trace(ns) -> int:
+    """``vtpu-smi trace [TENANT]``: the flight recorder's spans and
+    slow-op captures, as text, ``--json``, or ``--dump FILE`` (Chrome
+    trace, for chrome://tracing or Perfetto)."""
+    from ..runtime import protocol as P
+    from ..runtime import trace as tracing
+    if not ns.broker:
+        print("trace needs --broker <main socket>", file=sys.stderr)
+        return 2
+    msg: dict = {"kind": P.TRACE}
+    if ns.cmd_arg:
+        msg["tenant"] = ns.cmd_arg
+    if ns.limit:
+        msg["limit"] = ns.limit
+    resp = request(ns.broker, msg)
+    if not resp.get("ok"):
+        print(json.dumps(resp, indent=2))
+        return 1
+    tenants = resp.get("tenants", {})
+    if ns.dump:
+        doc = tracing.chrome_trace(tenants)
+        with open(ns.dump, "w") as f:
+            json.dump(doc, f)
+        print(f"wrote {len(doc['traceEvents'])} trace events to {ns.dump} "
+              "(load in chrome://tracing or Perfetto)")
+        return 0
+    if ns.json:
+        print(json.dumps(resp, indent=2))
+        return 0
+    if not resp.get("enabled"):
+        print("tracing is disabled on this broker (set VTPU_TRACE=1)")
+    for name, body in sorted(tenants.items()):
+        spans = body.get("spans", [])
+        caps = body.get("captures", [])
+        print(f"tenant {name}: {len(spans)} spans, {len(caps)} slow-op "
+              "captures")
+        for sp in spans[-(ns.limit or 10):]:
+            print(f"  {sp.get('trace', '-'):>16} {sp.get('key', '?'):<12}"
+                  f" queue {sp.get('queue_us', 0):>9.0f}us"
+                  f" bucket {sp.get('bucket_us', 0):>9.0f}us"
+                  f" device {sp.get('device_us', 0):>9.0f}us"
+                  f" total {sp.get('total_us', 0):>9.0f}us"
+                  + (" ERROR" if sp.get("error") else ""))
+        for cap in caps[-3:]:
+            ctx = cap.get("context", {})
+            print(f"  SLOW {cap.get('factor')}x est {cap.get('est_us')}us: "
+                  f"qdepth={ctx.get('queue_depth')} bucket="
+                  f"{ctx.get('bucket_level_us')}us hbm_free="
+                  f"{ctx.get('hbm_headroom_bytes')} co="
+                  f"{','.join(ctx.get('co_tenants', [])) or '-'}")
+    return 0
+
+
+def cmd_leases(ns) -> int:
+    """``vtpu-smi leases``: the lease sidecar's holder of the node's
+    cards, its liveness and heartbeat age; exit 1 when one is stale."""
+    from ..runtime import trace as tracing
+    out = []
+    for p in ns.lease_file or [tracing.lease_sidecar_path()]:
+        diag = tracing.diagnose_lease(p)
+        diag["sidecar"] = p
+        out.append(diag)
+    if ns.json:
+        print(json.dumps(out, indent=2))
+    else:
+        for diag in out:
+            print(f"{diag['sidecar']}: "
+                  f"{tracing.format_lease_diagnosis(diag)}")
+    return 1 if any(d.get("stale") for d in out) else 0
+
+
+def cmd_admin(ns) -> int:
+    """The broker's admin verbs over ``<broker>.admin``; prints the
+    reply, exit 0 when it is ok."""
+    from ..runtime import protocol as P
+    path = ns.broker + ".admin"
+    if ns.suspend:
+        msg = {"kind": P.SUSPEND, "tenant": ns.suspend}
+    elif ns.resume:
+        msg = {"kind": P.RESUME, "tenant": ns.resume}
+    elif ns.resize:
+        msg = {"kind": P.RESIZE, "tenant": ns.resize}
+        if ns.hbm is not None:
+            msg["hbm_limit"] = envspec.parse_quantity(ns.hbm)
+        if ns.core is not None:
+            msg["core_limit"] = int(ns.core)
+    elif ns.broker_stats:
+        msg = {"kind": P.STATS}
+    elif ns.drain or ns.handover:
+        msg = {"kind": P.DRAIN if ns.drain else P.HANDOVER}
+    elif ns.shutdown:
+        msg = {"kind": P.SHUTDOWN}
+    else:
+        print("--broker needs --suspend/--resume/--resize/--broker-stats/"
+              "--drain/--handover/--shutdown", file=sys.stderr)
+        return 2
+    resp = request(path, msg, timeout=90.0)
+    print(json.dumps(resp, indent=2))
+    return 0 if resp.get("ok") else 1
+
+
 def metricsd_view(addr: str) -> Dict:
     """Every metric a pod's metricsd at ``addr`` serves, as
     ``{"metricsd", "supported", "metrics": {name: {device: value}}}``
@@ -212,12 +332,22 @@ def cmd_metricsd(ns) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="vtpu-smi")
     ap.add_argument("cmd", nargs="?", default=None,
-                    choices=("metricsd", *REFUSED_COMMANDS),
-                    help="metricsd: what a pod's metricsd serves it; the "
-                         "others are vtpu's broker and analyzer commands, "
-                         "not ported yet")
+                    choices=("metricsd", "trace", "leases",
+                             *REFUSED_COMMANDS),
+                    help="metricsd: what a pod's metricsd serves it; trace: "
+                         "the broker's flight recorder; leases: who holds "
+                         "the node's cards; the others are vtpu's broker "
+                         "and analyzer commands, not ported yet")
     ap.add_argument("cmd_arg", nargs="?", default=None,
-                    help="HOST:PORT for `metricsd`")
+                    help="HOST:PORT for `metricsd`, TENANT for `trace`")
+    ap.add_argument("--dump", default=None, metavar="FILE",
+                    help="with `trace`: write a Chrome trace")
+    ap.add_argument("--limit", type=int, default=0,
+                    help="with `trace`: newest N spans per tenant")
+    ap.add_argument("--lease-file", action="append", default=[],
+                    metavar="PATH",
+                    help="with `leases`: sidecar path(s); default "
+                         "VTPU_LEASE_SIDECAR")
     ap.add_argument("--scan", default=None,
                     help="directory of per-pod shared regions (node mode)")
     ap.add_argument("--region", action="append", default=[],
@@ -225,9 +355,33 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--sweep-host", action="store_true",
                     help="reclaim slots of dead host pids (node mode only)")
-    for flag in BROKER_FLAGS:
+    ap.add_argument("--broker", default=None, metavar="SOCKET",
+                    help="the broker's MAIN socket; enables the admin verbs "
+                         "below (over SOCKET.admin, host-only)")
+    ap.add_argument("--suspend", default=None, metavar="TENANT",
+                    help="hold TENANT's queue")
+    ap.add_argument("--resume", default=None, metavar="TENANT")
+    ap.add_argument("--resize", default=None, metavar="TENANT",
+                    help="resize TENANT's grant live (journaled); with "
+                         "--hbm and/or --core")
+    ap.add_argument("--hbm", default=None, metavar="QTY",
+                    help="with --resize: the new HBM cap (K8s quantity)")
+    ap.add_argument("--core", type=int, default=None, metavar="PCT",
+                    help="with --resize: the new compute share (0-100; 0 "
+                         "unmetered)")
+    ap.add_argument("--broker-stats", action="store_true",
+                    help="per-tenant broker stats, with the journal's")
+    ap.add_argument("--drain", action="store_true",
+                    help="refuse new tenants, quiesce and commit a final "
+                         "journal snapshot")
+    ap.add_argument("--handover", action="store_true",
+                    help="--drain, then exit for the successor broker, "
+                         "which recovers the journal")
+    ap.add_argument("--shutdown", action="store_true",
+                    help="stop the broker without the drain")
+    for flag in REFUSED_FLAGS:
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in BROKER_SWITCHES:
+    for flag in REFUSED_SWITCHES:
         ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     # A refused sub-command is refused whatever its own options are.
     ns, rest = ap.parse_known_args(argv)
@@ -237,15 +391,26 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     if rest:
         ap.error("unrecognized arguments: " + " ".join(rest))
-    given = [f for f in BROKER_FLAGS + BROKER_SWITCHES
+    given = [f for f in REFUSED_FLAGS + REFUSED_SWITCHES
              if getattr(ns, f[2:].replace("-", "_"))]
     if given:
-        print(refusal(", ".join(given) + " (the broker's admin surface)",
-                      "6(b)"),
+        print(refusal(", ".join(given) + " (migration and replication)",
+                      "6(d)"),
               file=sys.stderr)
         return 2
     if ns.cmd == "metricsd":
         return cmd_metricsd(ns)
+    if ns.cmd == "trace":
+        return cmd_trace(ns)
+    if ns.cmd == "leases":
+        return cmd_leases(ns)
+    admin = (ns.suspend or ns.resume or ns.resize or ns.broker_stats
+             or ns.drain or ns.handover or ns.shutdown)
+    if admin and not ns.broker:
+        ap.error("--suspend/--resume/--resize/--broker-stats/--drain/"
+                 "--handover/--shutdown need --broker <main socket>")
+    if ns.broker:
+        return cmd_admin(ns)
 
     paths = ns.region or find_regions(ns.scan)
     infos = []

@@ -114,9 +114,10 @@ ALL_ENV_VARS = [
 # Python (``os.environ``) and in ``native/interposer.cc`` (``getenv``),
 # and every one Allocate sets, by the layer that reads it: "contract"
 # (set by Allocate, read in the container), "daemon", "shim" (the
-# in-container bootstrap and enforcement), "tools" (metricsd and the
-# views under ``tools/``), "k8s" (the in-cluster API client), "broker"
-# (``runtime/``), "build" (``ops/_build.py``).  ``vtpu``'s registry
+# in-container bootstrap and enforcement, and the broker's client),
+# "tools" (metricsd and the views under ``tools/``), "k8s" (the
+# in-cluster API client), "broker" (``runtime/``), "chaos" (fault
+# injection), "trace" (the flight recorder), "build" (``ops/_build.py``).  ``vtpu``'s registry
 # (``utils/envspec.py``) with the port's own keys; no TPU-only key.
 # ``tests/test_torch_bootstrap.py`` walks the sources and holds every
 # read to it.
@@ -189,19 +190,43 @@ ENV_FLAGS = {
     # The in-cluster API client (k8s/client.py).
     "KUBERNETES_SERVICE_HOST": "k8s",
     "KUBERNETES_SERVICE_PORT": "k8s",
-    # The broker (runtime/): its wire, its scheduler and its client;
-    # VTPU_JOURNAL_DIR and VTPU_TRACE are read to be refused until their
-    # modules are ported (ROADMAP Queue 1 item 6(b)).
+    # The broker (runtime/): its wire, its scheduler, its journal
+    # (journal.py, replication.py's fence), its timers and its client;
+    # VTPU_FASTLANE and VTPU_SLO are read to be refused until their
+    # modules are ported (ROADMAP Queue 1 items 6(c), 6(d)).
     "VTPU_PUT_CHUNK_BYTES": "broker",
     "VTPU_RECV_POOL_MB": "broker",
     "VTPU_MAX_QUEUE_US": "broker",
     "VTPU_WAKE_BATCH": "broker",
     "VTPU_WORK_CONSERVING": "broker",
     "VTPU_JOURNAL_DIR": "broker",
-    "VTPU_TRACE": "broker",
+    "VTPU_JOURNAL_FSYNC": "broker",
+    "VTPU_JOURNAL_SNAPSHOT_EVERY": "broker",
+    "VTPU_RESUME_GRACE_S": "broker",
+    "VTPU_CLAIM_WATCHDOG_S": "broker",
+    "VTPU_REPL_FENCE": "broker",
+    "VTPU_TIMER_COALESCE_MS": "broker",
+    "VTPU_FASTLANE": "broker",
+    "VTPU_SLO": "broker",
     "VTPU_EXEC_BATCH": "broker",
     "VTPU_TENANT": "broker",
     "VTPU_RPC_TIMEOUT_S": "broker",
+    # Deterministic fault injection (runtime/faults.py), the client's
+    # reconnect and its degraded mode (runtime/client.py, degraded.py).
+    "VTPU_FAULTS": "chaos",
+    "VTPU_FAULTS_SEED": "chaos",
+    "VTPU_CONNECT_TIMEOUT_S": "shim",
+    "VTPU_RECONNECT_TIMEOUT_S": "shim",
+    "VTPU_RECONNECT_BACKOFF_MS": "shim",
+    "VTPU_RECONNECT_BACKOFF_CAP_MS": "shim",
+    "VTPU_RECONNECT_FAST_S": "shim",
+    "VTPU_BROKER_GRACE_S": "shim",
+    "VTPU_DEGRADED_QUEUE": "shim",
+    # The flight recorder and the lease sidecar (runtime/trace.py).
+    "VTPU_TRACE": "trace",
+    "VTPU_TRACE_RING": "trace",
+    "VTPU_SLOW_OP_FACTOR": "trace",
+    "VTPU_LEASE_SIDECAR": "trace",
     # The native build.
     "CUDA_HOME": "build",
 }

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs twelve phases, each of which asserts; any failure exits
+then runs thirteen phases, each of which asserts; any failure exits
 non-zero and prints no result line.
 
 1. Device: the card's name and power limit, the versions (msgpack and
@@ -125,9 +125,41 @@ non-zero and prints no result line.
    and books more of its window than each of the pair.  Phase 12 alone: ``python3 -c "import chip_smoke, tempfile,
    torch; chip_smoke.phase_device(torch); chip_smoke.phase_broker(torch,
    tempfile.mkdtemp(), {'serve': float('nan')})"``.
+13. The broker's durability half: brokers as processes
+   (``python -m vtpu_torch.runtime.server --device cuda``) with a journal
+   (on /dev/shm when it has room for the weights twice, else the temp
+   directory; the script prints which) and ``VTPU_TRACE=1``, tenants as
+   children with ``CUDA_VISIBLE_DEVICES`` empty.  13a: Llama-3-8B at full
+   width, depth cut to 4 layers (3.85 GB of bf16 weights drawn on the card
+   from a seed, PUT by the tenant, so journaled), b=2, s=512, under an
+   8 GiB cap and core 100 given in HELLO; after 8 steps (two chains of 4)
+   the broker is killed with SIGKILL while the third chain is in flight,
+   and a successor started with the same command shows in a bind-free
+   STATS, before the tenant goes on, the tenant recovered, its ledger
+   equal to the bytes of its journaled PUTs and its cost EMA keys; that
+   successor exits 3 at its second dispatch (``VTPU_FAULTS=exit3@
+   dispatch:nth=2``, the device-fault exit) and a third one takes over.
+   The tenant's ``serve_brokered`` catches no exception on its way to step
+   16; the tokens equal in-process ``entry.serve``'s on at least 99.9% of
+   positions; the last broker's K1 launches, from its own log at
+   shutdown, are all sm90, 4 a step it ran; the ledger reads 0 after the
+   tenant exits.  13b: the bench config (b=4, s=512, PUT weights) flat
+   out in a broker with ``--work-conserving 0``: 4 s at core 100, then
+   ``vtpu-smi --broker <sock> --resize <tenant> --core 50`` and 4 s more,
+   where it books 0.40-0.60 of its window and less than before;
+   ``vtpu-smi trace --dump`` writes a Chrome trace of its spans, whose
+   queue, bucket and device phases add up to each total, with the
+   bucket's p50 0 before the resize and above 0 after; ``vtpu-smi
+   leases`` names the broker's pid; ``vtpu-smi --broker <sock>
+   --handover`` exits 0, the script starts the successor, the tenant
+   serves on with no exception, and the successor holds core 50 and the
+   cost EMA.  Phase 13 alone: ``python3 -c "import chip_smoke, tempfile,
+   torch; chip_smoke.phase_device(torch); chip_smoke.phase_durability(
+   torch, tempfile.mkdtemp(), {'serve': float('nan')})"``.
 
 The line before the last is one JSON object with each kernel's numbers
-(``launches`` from phase 3, ``brokered_launches`` from phase 12);
+(``launches`` from phase 3, ``brokered_launches`` from phase 12,
+``phase13_launches`` from the phase 13 brokers that exit cleanly);
 the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2466,6 +2498,25 @@ def brokered_child(torch, torch_maps, go, mode, sock, out_dir):
     return res
 
 
+def drawn_weights(torch, cfg, seed, device):
+    """``cfg``'s weights drawn on ``device`` by the port's seed init
+    (``init_program``) and the same as ``vtpu``'s pytree of CPU tensors,
+    which a tenant PUTs."""
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.models.convert import init_program
+
+    with torch.inference_mode():
+        drawn = init_program(cfg, seed, device=device)()
+    tree = {"layers": [{} for _ in range(cfg.n_layers)]}
+    for (name, _, _), w in zip(tr.param_shapes(cfg), drawn):
+        path = name.split(".")
+        if path[0] == "layers":
+            tree["layers"][int(path[1])][path[2]] = w.cpu()
+        else:
+            tree[name] = w.cpu()
+    return drawn, tree
+
+
 def libcuda_maps():
     """The libcuda files this process maps."""
     with open("/proc/self/maps") as f:
@@ -2484,7 +2535,6 @@ def phase_broker(torch, tmp, direct):
 
     from vtpu_torch import entry
     from vtpu_torch.models import transformer as tr
-    from vtpu_torch.models.convert import init_program
     from vtpu_torch.ops import flash_attention as fa
     from vtpu_torch.runtime import server as rs
 
@@ -2509,15 +2559,7 @@ def phase_broker(torch, tmp, direct):
         # the tenant PUTs the same bytes from a file.
         cfg = dataclasses.replace(tr.TransformerConfig.bench(),
                                   use_flash=True)
-        with torch.inference_mode():
-            drawn = init_program(cfg, BROKER_SEED, device="cuda")()
-        tree = {"layers": [{} for _ in range(cfg.n_layers)]}
-        for (name, _, _), w in zip(tr.param_shapes(cfg), drawn):
-            path = name.split(".")
-            if path[0] == "layers":
-                tree["layers"][int(path[1])][path[2]] = w.cpu()
-            else:
-                tree[name] = w.cpu()
+        drawn, tree = drawn_weights(torch, cfg, BROKER_SEED, "cuda")
         torch.save(tree, os.path.join(tmp, "parity_weights.pt"))
         prompt = broker_prompt(cfg)
         ref = entry.serve(cfg, *BROKER_SHAPE, steps=BROKER_CHAIN,
@@ -2640,13 +2682,520 @@ def phase_broker(torch, tmp, direct):
             "wmma": launches["parity"]["wmma"] + launches["full"]["wmma"]}
 
 
+# -- phase 13: the broker's durability half ----------------------------------
+
+P13_SEED = 13
+P13_LAYERS = 4             # Llama-3-8B at full width, depth cut to 4
+P13_STEPS = 16             # four chains of P13_CHAIN
+P13_CHAIN = 4
+P13_KILL_AT = 8            # steps fetched when the broker is killed
+P13_CAP = 8 * 2**30        # 13a's HBM cap, given in HELLO
+P13_SHARE_S = 4.0          # each part of 13b's RESIZE window
+P13_CORE = 50              # 13b's share after the RESIZE
+# The card's settings; a rehearsal on the CPU passes its own.
+P13_CARD = {"device": "cuda", "cfg": "llama4", "bench": "bench",
+            "shape": [2, 512], "bench_shape": [4, 512], "cap": P13_CAP}
+
+
+def p13_config(name):
+    from vtpu_torch.models import transformer as tr
+
+    cfg = {"llama4": lambda: dataclasses.replace(
+        tr.TransformerConfig.llama3_8b(), n_layers=P13_LAYERS),
+        "bench": tr.TransformerConfig.bench,
+        "tiny": tr.TransformerConfig.tiny}[name]()
+    return dataclasses.replace(cfg, use_flash=True)
+
+
+def p13_prompt(cfg, shape):
+    return np.random.default_rng(P13_SEED).integers(
+        0, cfg.vocab, tuple(shape), dtype=np.int32)
+
+
+def journal_home(tmp, need):
+    """(directory, what it is) for a journal of ``need`` bytes of blobs: a
+    tmpfs (/dev/shm) when it has room for them twice, where writes are
+    fast and the journal's contract (it survives the broker's death, not
+    the machine's) holds as on a disk; else the temp directory."""
+    import shutil
+
+    shm = "/dev/shm"
+    try:
+        free = shutil.disk_usage(shm).free
+    except OSError:
+        free = 0
+    if os.path.isdir(shm) and free >= 2 * need:
+        return (tempfile.mkdtemp(prefix="vtpu-p13-", dir=shm),
+                f"{shm} (tmpfs, {free / 2**30:.1f} GiB free)")
+    return (tmp, f"the temp directory ({shm} has {free / 2**30:.1f} GiB "
+                 f"free, under {2 * need / 2**30:.1f})")
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+class Broker:
+    """One broker process (``python -m vtpu_torch.runtime.server``) with
+    a journal and tracing on; its stderr goes to a file."""
+
+    def __init__(self, name, sock, jdir, tmp, s13, lease, faults=None,
+                 args=()):
+        self.name, self.sock = name, sock
+        env = dict(os.environ, VTPU_JOURNAL_DIR=jdir, VTPU_TRACE="1",
+                   VTPU_TRACE_RING="1024", VTPU_LOG_LEVEL="3",
+                   VTPU_LEASE_SIDECAR=lease,
+                   PYTHONPATH=REPO + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        env.pop("VTPU_FAULTS", None)
+        if faults:
+            env["VTPU_FAULTS"] = faults
+        self.errpath = os.path.join(tmp, f"{name}.err")
+        self.t0 = time.monotonic()
+        with open(self.errpath, "w") as err:
+            self.p = subprocess.Popen(
+                [sys.executable, "-m", "vtpu_torch.runtime.server",
+                 "--socket", sock, "--device", s13["device"], *args],
+                env=env, stdout=subprocess.DEVNULL, stderr=err, cwd=REPO)
+
+    def log(self):
+        with open(self.errpath) as f:
+            return f.read()
+
+    def bound(self, timeout=240.0):
+        """Seconds from the start until a bind-free STATS answers (the
+        journal's replay and the card's claim come before the bind)."""
+        from vtpu_torch.tools.vtpu_smi import request
+
+        deadline = self.t0 + timeout
+        while True:
+            check(self.p.poll() is None, f"broker {self.name} exited rc "
+                  f"{self.p.returncode}: {self.log()[-3000:]}")
+            try:
+                if request(self.sock, {"kind": "stats"}, 5.0)["ok"]:
+                    return time.monotonic() - self.t0
+            except OSError:
+                pass
+            check(time.monotonic() < deadline,
+                  f"broker {self.name} not bound after {timeout} s")
+            time.sleep(0.05)
+
+    def stats(self):
+        from vtpu_torch.tools.vtpu_smi import request
+
+        return request(self.sock, {"kind": "stats"})
+
+    def row(self, tenant):
+        return self.stats()["tenants"].get(tenant)
+
+    def launches(self):
+        """K1's launches by route, from the line the broker writes to its
+        log at a graceful exit."""
+        got = re.findall(r"K1 launches (\{.*\})", self.log())
+        check(got, f"broker {self.name} logged no K1 launches")
+        return json.loads(got[-1])
+
+    def shutdown(self):
+        from vtpu_torch.tools.vtpu_smi import request
+
+        request(self.sock + ".admin", {"kind": "shutdown"})
+        self.p.wait(timeout=60)
+
+    def stop(self):
+        if self.p.poll() is None:
+            self.p.kill()
+            self.p.wait()
+
+
+def region_ledger(path):
+    from vtpu_torch.shim.core import SharedRegion
+
+    r = SharedRegion(path)
+    try:
+        return sum(int(r.device_stats(i).used_bytes)
+                   for i in range(r.ndevices))
+    finally:
+        r.close()
+
+
+def vtpu_smi(args, env=None):
+    return subprocess.run([sys.executable, "-m", "vtpu_torch.tools.vtpu_smi",
+                           *args], capture_output=True, text=True,
+                          timeout=120, cwd=REPO, env=env)
+
+
+def p13_child(torch, go, sock, role, s13):
+    """Phase 13's tenant (no card: started with CUDA_VISIBLE_DEVICES
+    empty).  ``crash`` serves the 13a model from the parent's weights as
+    PUTs for P13_STEPS steps; at P13_KILL_AT steps it prints KILLPOINT
+    and waits for the go file, while the parent kills the broker; the
+    restarts after that come to it unannounced.  ``bench`` serves the
+    bench config from PUT weights flat out, reports READY, starts on the
+    go file, writes the steps it has fetched to ``<go>.progress``
+    and stops once ``<go>.stop`` exists.  Either way it catches no
+    exception: ``serve_brokered`` resumes across the restarts."""
+    from vtpu_torch import entry
+    from vtpu_torch.runtime.client import RuntimeClient
+
+    check(os.environ.get("CUDA_VISIBLE_DEVICES") == "",
+          "the tenant was started with a card visible")
+    home = os.path.dirname(go)
+    if role == "crash":
+        cfg, shape = p13_config(s13["cfg"]), s13["shape"]
+        c = RuntimeClient(sock, tenant="p13", hbm_limit=s13["cap"],
+                          core_limit=100)
+        weights = torch.load(os.path.join(s13["wdir"], "p13_weights.pt"),
+                             weights_only=True)
+
+        def on_chain(n):
+            if n == P13_KILL_AT and not os.path.exists(go):
+                print("KILLPOINT", flush=True)
+                while not os.path.exists(go):
+                    time.sleep(0.005)
+
+        out = entry.serve_brokered(
+            c, cfg, *shape, steps=P13_STEPS, weights=weights,
+            chain=P13_CHAIN, depth=2, prompt=p13_prompt(cfg, shape),
+            on_chain=on_chain)
+        np.save(os.path.join(home, "p13_tokens.npy"), out["tokens"].numpy())
+    else:
+        cfg, shape = p13_config(s13["bench"]), s13["bench_shape"]
+        c = RuntimeClient(sock, tenant="p13b", core_limit=100)
+        weights = torch.load(os.path.join(s13["wdir"], "p13b_weights.pt"),
+                             weights_only=True)
+        progress = go + ".progress"
+
+        def ready():
+            print("READY", flush=True)
+            while not os.path.exists(go):
+                time.sleep(0.005)
+
+        def on_chain(n):
+            with open(progress + ".tmp", "w") as f:
+                f.write(str(n))
+            os.replace(progress + ".tmp", progress)
+            return os.path.exists(go + ".stop")
+
+        out = entry.serve_brokered(
+            c, cfg, *shape, weights=weights, chain=P13_CHAIN, depth=2,
+            seconds=600.0, prompt=p13_prompt(cfg, shape), on_ready=ready,
+            on_chain=on_chain)
+    c.close()
+    return {"steps": out["steps"], "setup_s": out["setup_s"],
+            "chain_times": out["chain_times"], "resumes": out["resumes"],
+            "stats": out["stats"], "cuda_initialized":
+            torch.cuda.is_initialized()}
+
+
+def p13_tenant(tmp, go, sock, role, s13):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               VTPU_RECONNECT_TIMEOUT_S="240", VTPU_RPC_TIMEOUT_S="300",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    err = open(os.path.join(tmp, f"p13_{role}.err"), "w+")
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                          "--child", "p13", go, sock, role, json.dumps(s13)],
+                         env=env, stdout=subprocess.PIPE, stderr=err,
+                         text=True, cwd=REPO)
+    return p, err
+
+
+def tenant_line(p, err, want, timeout=900.0):
+    """Wait for the tenant's line ``want``; fail with its stderr if it
+    exits first."""
+    import selectors
+
+    sel = selectors.DefaultSelector()
+    sel.register(p.stdout, selectors.EVENT_READ)
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if sel.select(timeout=1.0):
+            line = p.stdout.readline()
+            if line.strip() == want:
+                return
+            if not line:
+                break
+    err.seek(0)
+    check(False, f"tenant never printed {want} (rc {p.poll()}): "
+          f"{err.read()[-3000:]}")
+
+
+def tenant_result(p, err, timeout=900.0):
+    out, _ = p.communicate(timeout=timeout)
+    res = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+    err.seek(0)
+    check(p.returncode == 0 and res,
+          f"tenant failed (rc {p.returncode}): {err.read()[-3000:]}")
+    return json.loads(res[-1][len("RESULT "):])
+
+
+def wait_for(fn, what, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while True:
+        got = fn()
+        if got:
+            return got
+        check(time.monotonic() < deadline, f"timed out waiting for {what}")
+        time.sleep(0.05)
+
+
+def p50(xs):
+    return statistics.median(xs) if xs else float("nan")
+
+
+def phase_durability(torch, tmp, direct, s13=None):
+    """Phase 13 (module docstring).  ``s13``: P13_CARD, or a rehearsal's
+    settings (device "cpu", tiny configs), under which the checks that
+    only a card can meet are left out.  13b's broker and tenant start
+    while 13a waits on its restarts; its measurements begin after 13a."""
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+
+    s13 = dict(P13_CARD if s13 is None else s13)
+    card = s13["device"] != "cpu"
+    cfg, bench = p13_config(s13["cfg"]), p13_config(s13["bench"])
+    shape = tuple(s13["shape"])
+    wbytes, bbytes = tr.state_bytes(cfg), tr.state_bytes(bench)
+    home, where = journal_home(tmp, wbytes + bbytes)
+    s13["wdir"] = home
+    brokers, tenants = [], []
+    out = {}
+
+    def broker(name, sock, jdir, lease, **kw):
+        brokers.append(Broker(name, sock, jdir, tmp, s13,
+                              os.path.join(tmp, lease), **kw))
+        return brokers[-1]
+
+    try:
+        # 13a: kill -9 at step 8, then an injected exit 3.
+        t_phase = time.monotonic()
+        for c_, name, seed in ((cfg, "p13", P13_SEED),
+                               (bench, "p13b", P13_SEED + 1)):
+            drawn, tree = drawn_weights(torch, c_, seed, s13["device"])
+            torch.save(tree, os.path.join(home, f"{name}_weights.pt"))
+        del drawn
+        tree = torch.load(os.path.join(home, "p13_weights.pt"),
+                          weights_only=True)
+        prompt = p13_prompt(cfg, shape)
+        ref = entry.serve(cfg, *shape, steps=P13_STEPS, device=s13["device"],
+                          weights=tree, prompt=prompt)
+        ref_rate, ref = ref["steps_per_s"], ref["tokens"]
+        del tree
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        prep_s = time.monotonic() - t_phase
+        sock, jdir = os.path.join(tmp, "p13.sock"), os.path.join(home, "j13a")
+        a = broker("p13a", sock, jdir, "lease13a.json")
+        bound_a = a.bound()
+        go = os.path.join(tmp, "p13a.go")
+        tenants.append(p13_tenant(tmp, go, sock, "crash", s13))
+        tenant_line(*tenants[-1], "KILLPOINT")
+        # 13b's broker and tenant get ready meanwhile.
+        sock_b = os.path.join(tmp, "p13b.sock")
+        jdir_b = os.path.join(home, "j13b")
+        args_b = ["--work-conserving", "0"]
+        d = broker("p13d", sock_b, jdir_b, "lease13b.json", args=args_b)
+        go_b = os.path.join(tmp, "p13b.go")
+        bench_tenant = None
+        # The cost model must be journaled before the kill.
+        before = wait_for(lambda: (a.row("p13") or {}).get("cost_ema_us")
+                          and a.row("p13"), "the tenant's cost EMA")
+        jbytes = dir_bytes(jdir)
+        a.stop()  # SIGKILL
+        b = broker("p13b", sock, jdir, "lease13a.json",
+                   faults="exit3@dispatch:nth=2")
+        bound_b = b.bound()
+        rec = b.row("p13")
+        check(rec is not None and rec["recovered"],
+              f"the successor did not recover the tenant: {b.stats()}")
+        check(rec["used_bytes"] == wbytes,
+              f"recovered ledger {rec['used_bytes']} != the journaled PUTs' "
+              f"{wbytes} B")
+        check(set(rec["cost_ema_us"]) == set(before["cost_ema_us"]),
+              f"cost EMA keys {rec['cost_ema_us']} != {before['cost_ema_us']}")
+        open(go, "w").close()
+        d.bound()
+        bench_tenant = p13_tenant(tmp, go_b, sock_b, "bench", s13)
+        tenants.append(bench_tenant)
+        rc_b = b.p.wait(timeout=600)
+        check(rc_b == 3, f"the injected exit gave rc {rc_b}: "
+              f"{b.log()[-2000:]}")
+        c = broker("p13c", sock, jdir, "lease13a.json")
+        bound_c = c.bound()
+        res = tenant_result(*tenants[0])
+        got = torch.from_numpy(np.load(os.path.join(tmp, "p13_tokens.npy")))
+        same = int((got == ref).sum())
+        check(same >= TOKEN_AGREEMENT * ref.numel(),
+              f"tokens after step {P13_STEPS} agree at {same} of "
+              f"{ref.numel()} positions")
+        check([r["resumed"] for r in res["resumes"]] == [True, True],
+              f"resumes {res['resumes']}")
+        check(not res["cuda_initialized"], "the tenant initialised CUDA")
+        wait_for(lambda: region_ledger(sock + ".shr") == 0 or None,
+                 "the ledger to read 0 after the tenant exited", 30)
+        jc = c.stats()["journal"]
+        c.shutdown()
+        ran = P13_STEPS - res["resumes"][-1]["at_step"]
+        l_c = c.launches()
+        if card:
+            check(l_c.get("sm90") == ran * cfg.n_layers
+                  and not l_c.get("wmma"),
+                  f"successor's K1 launches {l_c} != {ran} steps x "
+                  f"{cfg.n_layers} sm90")
+        ct = res["chain_times"]
+        rate_before = P13_CHAIN / (ct[1][1] - ct[0][1])
+        rate_after = ran / (ct[-1][1] - res["resumes"][-1]["t"])
+        put_s = res["setup_s"]["weights"]
+        say(f"13a journal in {where}: {jbytes} B after the PUTs of "
+            f"{wbytes} B of weights, PUT {put_s:.2f} s "
+            f"({wbytes / put_s / 1e9:.3f} GB/s journaled and copied), "
+            f"compile {res['setup_s']['compile']:.2f} s; drawing and saving "
+            f"both phases' weights and serving in process {prep_s:.1f} s")
+        say(f"13a bound after {bound_a:.2f} s (first), {bound_b:.2f} s "
+            f"(after kill -9, replay of the journal included), "
+            f"{bound_c:.2f} s (after the injected exit 3); resume "
+            f"(restoring {wbytes} B and loading the program) "
+            f"{jc['resume_s_last']:.2f} s on the last successor; resumed "
+            f"at steps {[r['at_step'] for r in res['resumes']]}; tokens "
+            f"after step {P13_STEPS} equal at {same} of {ref.numel()}; "
+            f"successor's launches {json.dumps(l_c)}")
+        say(f"13a rate {rate_before:.3f} steps/s in the chain before the "
+            f"kill, {rate_after:.3f} over the {ran} steps from the last "
+            f"resume to the end (its first chain's first run included; in "
+            f"process: {ref_rate:.3f}; phase 3, 32 layers: "
+            f"{direct['serve']:.3f}); 13a took "
+            f"{time.monotonic() - t_phase:.1f} s")
+        out["sm90"] = l_c.get("sm90", 0)
+        out["wmma"] = l_c.get("wmma", 0)
+
+        # 13b: RESIZE, trace and HANDOVER at the bench config.
+        t_b = time.monotonic()
+        sock, jdir, go = sock_b, jdir_b, go_b
+        tenant_line(*bench_tenant, "READY")
+        open(go, "w").close()
+
+        def busy():
+            return d.row("p13b")["busy_us"] / 1e6, time.monotonic()
+
+        time.sleep(1.0)
+        b0, t0 = busy()
+        time.sleep(P13_SHARE_S)
+        b1, t1 = busy()
+        r = vtpu_smi(["--broker", sock, "--resize", "p13b", "--core",
+                      str(P13_CORE)])
+        t_resize = time.time()
+        check(r.returncode == 0, f"vtpu-smi --resize: {r.stdout}{r.stderr}")
+        time.sleep(0.5)
+        b2, t2 = busy()
+        time.sleep(P13_SHARE_S)
+        b3, t3 = busy()
+        share1, share2 = (b1 - b0) / (t1 - t0), (b3 - b2) / (t3 - t2)
+        lo, hi = SHARE_PAIR_BAND
+        dump = os.path.join(tmp, "p13b_trace.json")
+        r = vtpu_smi(["trace", "p13b", "--broker", sock, "--dump", dump])
+        check(r.returncode == 0, f"vtpu-smi trace: {r.stdout}{r.stderr}")
+        with open(dump) as f:
+            events = json.load(f)["traceEvents"]
+        r = vtpu_smi(["trace", "p13b", "--broker", sock, "--json"])
+        spans = json.loads(r.stdout)["tenants"]["p13b"]["spans"]
+        check(any(e.get("ph") == "X" for e in events) and spans,
+              "the Chrome trace holds no span of the tenant")
+        worst = max(abs(sp["queue_us"] + sp["bucket_us"] + sp["device_us"]
+                        - sp["total_us"]) for sp in spans)
+        check(worst <= 0.5, f"a span's phases miss its total by {worst} us")
+        pre = [sp for sp in spans if sp["ts"] < t_resize
+               and not sp.get("first_run")]
+        post = [sp for sp in spans if sp["ts"] > t_resize + 0.5]
+        phases = {k: (p50([sp[k] for sp in pre]), p50([sp[k] for sp in post]))
+                  for k in ("queue_us", "bucket_us", "device_us", "total_us")}
+        r = vtpu_smi(["leases"], env=dict(
+            os.environ, VTPU_LEASE_SIDECAR=os.path.join(tmp, "lease13b.json"),
+            PYTHONPATH=REPO))
+        check(r.returncode == 0 and f"pid {d.p.pid} " in r.stdout,
+              f"vtpu-smi leases does not name the broker {d.p.pid}: "
+              f"{r.stdout}{r.stderr}")
+        ema = d.row("p13b")["cost_ema_us"]
+
+        def progress():
+            try:
+                with open(go + ".progress") as f:
+                    return int(f.read())
+            except (OSError, ValueError):
+                return 0
+
+        steps_at = progress()
+        r = vtpu_smi(["--broker", sock, "--handover"])
+        check(r.returncode == 0, f"vtpu-smi --handover: {r.stdout}{r.stderr}")
+        rc_d = d.p.wait(timeout=120)
+        e = broker("p13e", sock, jdir, "lease13b.json", args=args_b)
+        bound_e = e.bound()
+
+        wait_for(lambda: progress() >= steps_at + 4 * P13_CHAIN,
+                 "two chains after the handover", 300)
+        row_e = e.row("p13b")
+        open(go + ".stop", "w").close()
+        res = tenant_result(*bench_tenant)
+        e.shutdown()
+        l_e = e.launches()
+        ct = res["chain_times"]
+        t_lost = res["resumes"][0]["t"]
+        last = max(t for _, t in ct if t <= t_lost)
+        first = min(t for _, t in ct if t > t_lost)
+        say(f"13b shares: {share1:.3f} of the window at core 100, "
+            f"{share2:.3f} after RESIZE to {P13_CORE} (vtpu-smi --resize); "
+            f"span p50 before / after the resize (us): " + ", ".join(
+                f"{k[:-3]} {v[0]:.0f} / {v[1]:.0f}"
+                for k, v in phases.items())
+            + f" ({len(pre)} and {len(post)} spans; worst partition error "
+            f"{worst:.2f} us; {len(events)} Chrome trace events)")
+        say(f"13b HANDOVER: the broker exited rc {rc_d}, the successor bound "
+            f"after {bound_e:.2f} s; blackout {first - last:.2f} s (last "
+            f"chain answered before to first after); successor's row: core "
+            f"{row_e['core_limit_pct']}, cost EMA {row_e['cost_ema_us']} "
+            f"(before: {ema}); launches {json.dumps(l_e)}; 13b took "
+            f"{time.monotonic() - t_b:.1f} s")
+        check(row_e["core_limit_pct"] == P13_CORE,
+              f"the successor's grant is core {row_e['core_limit_pct']}")
+        check(set(row_e["cost_ema_us"]) >= set(ema),
+              f"the successor lost the cost EMA: {row_e['cost_ema_us']}")
+        check(res["resumes"] and all(x["resumed"] for x in res["resumes"]),
+              f"resumes {res['resumes']}")
+        if card:
+            check(lo <= share2 <= hi,
+                  f"after RESIZE to {P13_CORE} the tenant booked {share2:.3f} "
+                  f"of its window, outside {lo}-{hi}")
+            check(share1 > share2, f"core 100 booked {share1:.3f}, not more "
+                  f"than core {P13_CORE}'s {share2:.3f}")
+            check(phases["bucket_us"][0] == 0 < phases["bucket_us"][1],
+                  f"bucket p50 {phases['bucket_us']} (want 0 before the "
+                  f"resize, above 0 after)")
+            check(not l_e.get("wmma"), f"wmma launches {l_e}")
+        out["sm90"] += l_e.get("sm90", 0)
+        out["wmma"] += l_e.get("wmma", 0)
+    finally:
+        for p, err in tenants:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+        for b in brokers:
+            b.stop()
+        if home != tmp:
+            import shutil
+            shutil.rmtree(home, ignore_errors=True)
+    return out
+
+
 def child_main(args):
     """``--child serve`` (phase 6), ``--child metered <go file>`` (phase
     7), ``--child granted <go file>`` (phase 8), ``--child train`` or
     ``--child train_parity`` (phase 9), ``--child pod <go file> <report
     file>`` or ``--child pyshim`` (phase 10), ``--child viewpod <dir>
     <name>`` or ``--child nvmlutil`` (phase 11), ``--child brokered <go
-    file> <mode> <socket> <dir>`` (phase 12): one tenant or probe;
+    file> <mode> <socket> <dir>`` (phase 12), ``--child p13 <go file>
+    <socket> crash|bench <settings>`` (phase 13): one tenant or probe;
     prints its RESULT line."""
     import torch
 
@@ -2672,6 +3221,8 @@ def child_main(args):
             res = train_parity_child(torch)
         elif args[0] == "brokered":
             res = brokered_child(torch, torch_maps, *args[1:])
+        elif args[0] == "p13":
+            res = p13_child(torch, *args[1:4], json.loads(args[4]))
         else:
             res = metered_child(torch, args[1])
     except Failed as e:
@@ -2716,6 +3267,7 @@ def main():
             phase(11, phase_views, torch, tmp, pods["host"],
                   [r["steps_per_s"] for r in pods["tenants"]])
             brokered = phase(12, phase_broker, torch, tmp, direct)
+            durable = phase(13, phase_durability, torch, tmp, direct)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -2724,6 +3276,7 @@ def main():
         {"name": lib, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
          "replaces": KERNEL_REPLACES, "launches": launches[route],
          "brokered_launches": brokered[route],
+         "phase13_launches": durable[route],
          "shape": {"bh": 64, "s": SERVE_S, "d": 128, "causal": True},
          **timed[SERVE_S][route]}
         for route, (lib, _symbol) in ROUTES.items()]}))

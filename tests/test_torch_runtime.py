@@ -52,6 +52,7 @@ from vtpu_torch.ops import flash_attention as tfa
 from vtpu_torch.runtime import client as tclient
 from vtpu_torch.runtime import protocol as TP
 from vtpu_torch.runtime import server as tserver
+from vtpu_torch.runtime import trace as ttrace
 
 MB = 10**6
 TIMEOUT_S = 20.0
@@ -684,7 +685,7 @@ def port(tmp_path):
 
 
 @pytest.mark.parametrize("verb,item", [
-    ("fastbind", "6(c)"), ("drain", "6(b)"), ("resize", "6(b)"),
+    ("fastbind", "6(c)"), ("migrate_out", "6(d)"), ("migrate_in", "6(d)"),
     ("migrate", "6(d)"), ("repl_sync", "6(d)")])
 def test_deferred_verbs_refused_with_their_item(port, verb, item):
     """On the socket that serves the verb in vtpu: a typed refusal that
@@ -718,8 +719,8 @@ def test_trace_and_slo_answer_disabled(port):
 
 
 @pytest.mark.parametrize("key,value,item", [
-    ("VTPU_JOURNAL_DIR", "/nonexistent", "6(b)"),
-    ("VTPU_TRACE", "1", "6(b)")])
+    ("VTPU_FASTLANE", "1", "6(c)"),
+    ("VTPU_SLO", "1", "6(d)")])
 def test_deferred_env_refused(tmp_path, monkeypatch, key, value, item):
     monkeypatch.setenv(key, value)
     with pytest.raises(RuntimeError, match=item.replace("(", r"\(")
@@ -832,7 +833,9 @@ def _meter(batch_spec, prev_obs_ago, latency_us=1000.0):
     region = _Region()
     sched.chip = type("Chip", (), {"latency_us": latency_us, "index": 0,
                                    "region": region})()
-    sched.state = type("State", (), {"min_exec_cost_us": 0})()
+    sched.state = type("State", (), {
+        "min_exec_cost_us": 0, "journal": None,
+        "flight": ttrace.FlightRecorder(enabled=False)})()
     sched.mu = threading.Condition()
     sched.inflight, sched.queued_est_us, sched._pool_us = {}, 0.0, 0.0
     tenant = type("T", (), {"name": "t", "index": 0, "cost_ema": {},

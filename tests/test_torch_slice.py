@@ -192,7 +192,10 @@ def test_import_hygiene():
         "vtpu_torch.tools.vtpu_smi", "vtpu_torch.tools.tpu_info",
         "vtpu_torch.tools.metrics_server", "vtpu_torch.runtime.protocol",
         "vtpu_torch.runtime.server", "vtpu_torch.runtime.client",
-        "vtpu_torch.utils.dtypes", *boot} <= set(mods)
+        "vtpu_torch.utils.dtypes", "vtpu_torch.runtime.journal",
+        "vtpu_torch.runtime.faults", "vtpu_torch.runtime.timers",
+        "vtpu_torch.runtime.trace", "vtpu_torch.runtime.degraded",
+        "vtpu_torch.runtime.replication", *boot} <= set(mods)
 
     native = os.path.join(PORT, "native")
     sources = sorted(os.listdir(native))
