@@ -234,8 +234,10 @@ def serve_brokered(client,
     first block is ``prompt`` or zeros.  The steps run as chains of
     ``chain`` steps (``repeats=chain``, ``carry=((0, 0),)``), ``depth``
     in flight; ``seconds`` runs chains until that long has passed
-    instead of ``steps``.  ``on_ready()`` is called once the weights are
-    in place and the program compiled, before the first chain;
+    instead of ``steps``.  ``chain=1`` sends one unchained execute a step,
+    which a client with a fastlane lane sends over the ring.
+    ``on_ready()`` is called once the weights are in place and the
+    program compiled, before the first chain;
     ``on_chain(n)`` after each chain's tokens are fetched, ``n`` the
     steps done, and a true return sends no more chains.
 
@@ -259,8 +261,8 @@ def serve_brokered(client,
     one chain), the steps run, the steps per second after the first
     chain, the device time booked to the tenant in that window
     (``busy_us`` of STATS) beside the window, the tenant's STATS row at
-    the end, the weights' ids, the init program (None when the weights
-    were PUT), the seconds the weights and the compile took, each
+    the end, the weights' ids, the step program, the init program (None
+    when the weights were PUT), the seconds the weights and the compile took, each
     fetched chain's (steps done, monotonic time) and each resume's step,
     time and error."""
     from .runtime.client import (RuntimeError_, VtpuConnectionLost,
@@ -402,6 +404,7 @@ def serve_brokered(client,
         "window_s": window,
         "stats": stats,
         "param_ids": param_ids,
+        "exe": exe,
         "init_exe": init_exe,
         "setup_s": setup_s,
         "chain_times": chain_times,

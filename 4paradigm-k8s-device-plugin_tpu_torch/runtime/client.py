@@ -45,14 +45,30 @@ next operation that finds the broker back reattaches.  With
 ``VTPU_TRACE=1`` every request carries a trace stamp; off, the wire
 carries no extra field.
 
-Not here yet: rate leases and the fastlane (ROADMAP Queue 1 item 6(c)).
+The fastlane (``runtime/fastlane.py``): with ``VTPU_FASTLANE=1`` (or
+``fastlane=True``) HELLO asks for a lane, and the broker answers with a
+ring and two shared-memory arenas, whose fds follow the reply.  Then an
+unchained execute rides the ring (no socket frame; its outputs' metadata
+is its route's), a PUT and a GET of a tensor that fits move their bytes
+through the arenas, and ``execute_send_feed`` sends a step's host batch
+as an offset into the tx arena.  A chained execute, one that frees ids,
+and every execute while the ring's gate is parked or closed go over the
+socket; replies keep the order of the sends whichever path carried them,
+and a ring execute the gate cancelled before it ran is sent again over
+the socket, unseen by the caller.  A reconnect drops the lane with the
+old connection (a resumed tenant gets a fresh one).  The client burns the
+lane's rate leases from the shared bucket itself; an execute reply's
+``lease`` is mirrored (``lease_remaining_us``, ``burn_lease``) to pace a
+pipelining caller.
 """
 
 from __future__ import annotations
 
+import collections
 import itertools
 import os
 import random
+import select
 import socket
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -63,6 +79,7 @@ import torch
 from ..utils import envspec
 from ..utils.dtypes import (dtype_name, tensor_bytes, tensor_from_bytes,
                             torch_dtype)
+from . import fastlane as fastlane_mod
 from . import faults
 from . import protocol as P
 from . import trace as tracing
@@ -230,7 +247,8 @@ class RuntimeClient:
                  oversubscribe: Optional[bool] = None,
                  timeout: Optional[float] = None,
                  reconnect_timeout: Optional[float] = None,
-                 trace: Optional[bool] = None):
+                 trace: Optional[bool] = None,
+                 fastlane: Optional[bool] = None):
         self._socket_path = socket_path
         self._ids = itertools.count()
         # Executes buffered by execute_send_ids ship as one EXEC_BATCH
@@ -242,6 +260,38 @@ class RuntimeClient:
         # still expected from the wire.
         self._ready: List[Dict[str, Any]] = []
         self._wire_out = 0
+        # The fastlane: the lane (None on the socket path); the routes,
+        # (exe, args, outs) -> {"id", "cost", "metas", "key"}, or "prime"
+        # while the program has not run once over the socket; the last
+        # route (a steady loop compares lists, not keys); a countdown to
+        # the next look at the gate (the drainer is the gate; the client
+        # only needs to notice within 64 steps).
+        self._fl_want = (fastlane_mod.client_wants() if fastlane is None
+                         else bool(fastlane))
+        self._lane: Optional[fastlane_mod.ClientLane] = None
+        self._routes: Dict[tuple, Any] = {}
+        self._fl_last: Optional[tuple] = None
+        self._fl_gate_in = 0
+        # Ring executes the gate cancelled and this client sent again.
+        self.fl_resubmits = 0
+        # Feed regions: owned by ring seqs until their completion is read,
+        # and by socket replies until the pipeline drains; the routes whose
+        # fed id a socket feed has bound (only then may the ring replace
+        # its bytes).
+        self._fl_feed_seqs: set = set()
+        self._fl_feed_wire = 0
+        self._fed_routes: set = set()
+        # While a lane exists, the order of the pipelined replies: ("w",)
+        # one from the socket, ("r", seq, route[, result]) one from the
+        # ring; with counts of each, and socket replies read ahead.
+        self._pending: "collections.deque[tuple]" = collections.deque()
+        self._wire_buf: "collections.deque[dict]" = collections.deque()
+        self._tok_wire = 0
+        self._tok_ring = 0
+        # The rate lease an execute reply carries: µs, expiry, revokes.
+        self.lease_us = 0.0
+        self.lease_exp = 0.0
+        self.lease_revocations = 0
         # With tracing on every request carries a stamp; off, none.
         self._trace_on = tracing.trace_enabled() if trace is None \
             else bool(trace)
@@ -273,6 +323,8 @@ class RuntimeClient:
             hello["hbm_limit"] = int(hbm)
         if core is not None:
             hello["core_limit"] = int(core)
+        if self._fl_want:
+            hello["fastlane"] = True
         self._hello = hello
         if timeout is None:
             timeout = _env("VTPU_RPC_TIMEOUT_S", 120.0)
@@ -353,12 +405,52 @@ class RuntimeClient:
                 f"{resp.get('code', '')}: {resp.get('error', '')}")
         self.tenant_index = resp["tenant_index"]
         self.chip = resp.get("chip", 0)
-        # What was buffered or read ahead belonged to the old socket.
+        # What was buffered or read ahead belonged to the old socket; so
+        # did the lane, its routes and its completions not yet read, and
+        # the lease.
         self._pending_batch.clear()
         self._ready.clear()
         self._wire_out = 0
+        self._drop_lane()
+        fl = resp.get("fastlane")
+        if fl and self._fl_want:
+            fds = None
+            if fl.get("fds") and hasattr(socket, "recv_fds"):
+                try:
+                    _m, fds, _f, _a = socket.recv_fds(self.sock, 1, 2)
+                except OSError:
+                    fds = None
+            try:
+                self._lane = fastlane_mod.ClientLane(fl, fds)
+            except (OSError, KeyError, ValueError):
+                # Never fatal: the socket serves everything.
+                self._lane = None
+                for fd in fds or ():
+                    try:
+                        os.close(fd)
+                    except OSError:
+                        pass
         return (resp.get("epoch"), bool(resp.get("created", False)),
                 bool(resp.get("resumed", False)))
+
+    def _drop_lane(self) -> None:
+        """Forget the lane and everything scoped to it (a new connection,
+        degraded mode, close)."""
+        self.lease_us = 0.0
+        self.lease_exp = 0.0
+        self._pending.clear()
+        self._wire_buf.clear()
+        self._tok_wire = 0
+        self._tok_ring = 0
+        self._routes.clear()
+        self._fl_last = None
+        self._fl_gate_in = 0
+        self._fl_feed_seqs.clear()
+        self._fl_feed_wire = 0
+        self._fed_routes.clear()
+        if self._lane is not None:
+            self._lane.close()
+            self._lane = None
 
     def _on_disconnect(self) -> None:
         """The connection died mid-request: dial again and classify
@@ -439,6 +531,9 @@ class RuntimeClient:
     # -- degraded mode (runtime/degraded.py) --
 
     def _enter_degraded(self) -> None:
+        # The lane died with the broker; quotas keep biting through the
+        # degraded enforcer.
+        self._drop_lane()
         self._degraded = True
         self._deg_since = time.monotonic()
         self._deg_attempt = 0
@@ -544,8 +639,17 @@ class RuntimeClient:
         """One wire frame as its logical replies: an EXEC_BATCH reply's
         positional results, anything else itself."""
         if resp.get("ok") and isinstance(resp.get("results"), list):
+            self._absorb_lease(resp)
             return list(resp["results"])
         return [resp]
+
+    def _note_wire(self, n: int) -> None:
+        """``n`` more pipelined replies to come from the socket, in order
+        with the ring's while a lane exists."""
+        self._wire_out += n
+        if self._lane is not None:
+            self._tok_wire += n
+            self._pending.extend([("w",)] * n)
 
     def _flush_batch(self) -> None:
         items, self._pending_batch = self._pending_batch, []
@@ -556,14 +660,18 @@ class RuntimeClient:
         else:
             msg = {"kind": P.EXEC_BATCH, "items": items}
         self._send_or_rebind([P.frame_header(self._maybe_stamp(msg))])
-        self._wire_out += len(items)
+        self._note_wire(len(items))
 
     def _sync_prelude(self) -> None:
         """Ship buffered executes and read every reply still on the wire,
-        so the next frame read answers the synchronous request."""
+        so the next frame read answers the synchronous request.  With a
+        lane, every ring execute sent so far completes first (a GET of
+        its output must find it bound)."""
         if self._degraded:
             self._degraded_gate()
         self._flush_batch()
+        while self._pending:
+            self._ready.append(self._next_pending_reply())
         while self._wire_out > 0:
             out = self._explode(self._recv_or_rebind())
             self._wire_out -= len(out)
@@ -600,12 +708,16 @@ class RuntimeClient:
                         and msg.get("kind") in self._RESUME_RETRY_KINDS:
                     return self._rpc(msg, payloads, _retry=False)
                 raise
+        self._absorb_lease(resp)
         if not resp.get("ok"):
             self._raise_reply_error(resp)
         return resp
 
     def close(self) -> None:
         self._closed = True
+        if self._lane is not None:
+            self._lane.release_lease()
+        self._drop_lane()
         if self._deg_enforcer is not None:
             self._deg_enforcer.close()
             self._deg_enforcer = None
@@ -638,7 +750,22 @@ class RuntimeClient:
         if self._degraded:
             # The last-granted cap decides before any transport attempt.
             self._degraded_gate(nbytes=len(flat))
-        self._rpc(hdr, [flat])
+        if self._lane is not None:
+            # Nothing the broker may still read sits in the arena after
+            # the prelude (feeds are copied out at dispatch).
+            self._sync_prelude()
+        lane = self._lane
+        if lane is not None and lane.tx is not None and lane.usable() \
+                and len(flat) <= lane.arena_nbytes:
+            # One copy into the tx arena and a header on the socket; the
+            # arena is free again once the ack is back.
+            if len(flat):
+                lane.tx[:len(flat)] = flat
+            hdr.pop("raw_parts")
+            hdr["arena_off"] = 0
+            self._rpc(hdr)
+        else:
+            self._rpc(hdr, [flat])
         self._used_mirror[aid] = len(flat)
         return RemoteArray(self, aid, t.shape, t.dtype)
 
@@ -653,10 +780,11 @@ class RuntimeClient:
         hdr, flat = self._put_raw_parts(t, aid)
         if self._degraded:
             self._degraded_gate(nbytes=len(flat))
+        self._ring_pending_resolve()
         self._flush_batch()
         self._send_or_rebind([P.frame_header(self._maybe_stamp(hdr))]
                              + P.raw_frames(flat))
-        self._wire_out += 1
+        self._note_wire(1)
         self._used_mirror[aid] = len(flat)
         return 1
 
@@ -664,8 +792,20 @@ class RuntimeClient:
         """The tensor ``aid`` as a CPU tensor (raw framing: the payload is
         received into one buffer of its exact size).  Retried once after
         a resumed reconnect, like every idempotent request."""
-        resp = self._rpc({"kind": P.GET, "id": aid, "raw": True})
+        lane = self._lane
+        arena = lane is not None and lane.rx is not None and lane.usable()
+        msg = {"kind": P.GET, "id": aid, "raw": True}
+        if arena:
+            # The broker answers from the rx arena when the tensor fits.
+            msg["arena"] = True
+        resp = self._rpc(msg)
         buf = bytearray(int(resp["nbytes"]))
+        lane = self._lane   # a resumed request answers from the new lane
+        if resp.get("arena_off") is not None and lane is not None \
+                and lane.rx is not None:
+            off = int(resp["arena_off"])
+            buf[:] = memoryview(lane.rx)[off:off + len(buf)]
+            return tensor_from_bytes(buf, resp["dtype"], resp["shape"])
         mv = memoryview(buf)
         got = 0
         try:
@@ -759,6 +899,16 @@ class RuntimeClient:
         attempt before it fails."""
         if self._degraded:
             self._degraded_gate(est_us=5000.0)
+        if self._lane is not None:
+            # The ring takes it, unless it is chained or frees ids, or the
+            # gate is not open; going over the socket, the ring's executes
+            # in flight complete first, so the dispatcher never sees an
+            # output half bound.
+            if repeats <= 1 and not free \
+                    and self._fastlane_send(eid, list(arg_ids),
+                                            list(out_ids)):
+                return
+            self._ring_pending_resolve()
         item: Dict[str, Any] = {"exe": eid, "args": list(arg_ids),
                                 "outs": list(out_ids)}
         if repeats > 1:
@@ -771,20 +921,358 @@ class RuntimeClient:
             self._flush_batch()
 
     def recv_reply(self) -> Dict[str, Any]:
-        """The next pipelined reply (FIFO); raises the typed error of a
-        refused one."""
+        """The next pipelined reply (FIFO, whichever path carried it);
+        raises the typed error of a refused one."""
         if self._ready:
             resp = self._ready.pop(0)
         else:
             if self._degraded:
                 self._degraded_gate()
             self._flush_batch()
-            out = self._explode(self._recv_or_rebind())
-            self._wire_out -= len(out)
-            resp, self._ready = out[0], self._ready + out[1:]
+            if self._pending:
+                resp = self._next_pending_reply()
+            else:
+                out = self._explode(self._recv_or_rebind())
+                self._wire_out -= len(out)
+                resp, self._ready = out[0], self._ready + out[1:]
+        self._absorb_lease(resp)
         if not resp.get("ok"):
             self._raise_reply_error(resp)
         return resp
+
+    # -- rate leases --
+
+    def _absorb_lease(self, resp: Dict[str, Any]) -> None:
+        """Mirror a reply's lease (µs and time to live, or a revoke).  The
+        broker enforces; this copy paces a pipelining caller."""
+        self._release_wire_feeds()
+        lease = resp.get("lease")
+        if not isinstance(lease, dict):
+            return
+        if lease.get("revoke"):
+            self.lease_us = 0.0
+            self.lease_exp = 0.0
+            self.lease_revocations += 1
+            return
+        self.lease_us = float(lease.get("us", 0) or 0)
+        self.lease_exp = time.monotonic() + float(lease.get("ttl_s", 0) or 0)
+
+    def lease_remaining_us(self) -> float:
+        """The mirrored lease's unexpired µs (0 when none)."""
+        if time.monotonic() >= self.lease_exp:
+            return 0.0
+        return self.lease_us
+
+    def burn_lease(self, us: float) -> bool:
+        """Burn ``us`` of the mirrored lease; True while some is left."""
+        if time.monotonic() >= self.lease_exp:
+            self.lease_us = 0.0
+            return False
+        self.lease_us = max(self.lease_us - us, 0.0)
+        return self.lease_us > 0.0
+
+    # -- the fastlane --
+
+    def _feed_done(self, seq: int) -> None:
+        """A ring completion that owned a feed region was read: the
+        drainer copied the bytes out before it completed."""
+        if seq in self._fl_feed_seqs:
+            self._fl_feed_seqs.discard(seq)
+            if self._lane is not None:
+                self._lane.feed_release()
+
+    def _release_wire_feeds(self) -> None:
+        """Socket feeds' regions come back together once no socket reply
+        is outstanding (the dispatcher copies them out before replying)."""
+        if self._fl_feed_wire and self._wire_out == 0 \
+                and self._tok_wire == 0 and not self._pending_batch:
+            n, self._fl_feed_wire = self._fl_feed_wire, 0
+            if self._lane is not None:
+                self._lane.feed_release(n)
+
+    def _broker_alive(self) -> bool:
+        """Whether the broker's end of the socket is still open, for the
+        ring's waits.  POLLRDHUP sees a dead peer even behind reply bytes
+        not yet read, which a peek reads as alive."""
+        rdhup = getattr(select, "POLLRDHUP", 0)
+        try:
+            p = select.poll()
+            p.register(self.sock.fileno(), select.POLLIN | rdhup)
+            ev = p.poll(0)
+        except (OSError, ValueError):
+            return False
+        if not ev:
+            return True
+        bad = select.POLLHUP | select.POLLERR | select.POLLNVAL | rdhup
+        if ev[0][1] & bad:
+            return False
+        if rdhup:
+            return True
+        try:
+            return bool(self.sock.recv(1, socket.MSG_PEEK | socket.MSG_DONTWAIT))
+        except (BlockingIOError, InterruptedError):
+            return True
+        except OSError:
+            return False
+
+    def _ring_resp(self, route, res) -> Dict[str, Any]:
+        """The reply of one ring completion: the route's output metadata
+        (static), or the error its status names."""
+        status, actual, _t_done = res
+        if status == fastlane_mod.EXEC_OK:
+            if actual > 0:
+                route["cost"] = 0.8 * route["cost"] + 0.2 * float(actual)
+            return {"ok": True, "outs": route["metas"],
+                    "device_time_us": float(actual)}
+        code = {fastlane_mod.EXEC_ENOTFOUND: "NOT_FOUND",
+                fastlane_mod.EXEC_ECANCELED: "CONNECTION_LOST"}.get(
+                    status, "INTERNAL")
+        return {"ok": False, "code": code,
+                "error": f"fastlane execute failed (status {status})"}
+
+    def _resubmit_msg(self, route) -> Dict[str, Any]:
+        eid, arg_ids, out_ids = route["key"]
+        return {"kind": P.EXECUTE, "exe": eid, "args": list(arg_ids),
+                "outs": list(out_ids)}
+
+    def _resubmit_canceled(self, route) -> Dict[str, Any]:
+        """A cancelled ring execute (it never ran) sent again over the
+        socket, its reply taking the cancelled one's place.  Only for the
+        oldest token, with nothing sent over the socket after it."""
+        self.fl_resubmits += 1
+        self._fl_gate_in = 0
+        try:
+            P.send_msg(self.sock, self._maybe_stamp(self._resubmit_msg(route)))
+            resp = self._recv()
+        except (ConnectionError, P.ProtocolError, OSError):
+            self._on_disconnect()
+            raise AssertionError("unreachable")
+        return resp
+
+    def _next_pending_reply(self) -> Dict[str, Any]:
+        """The oldest pipelined reply, whichever path carries it."""
+        tok = self._pending.popleft()
+        if tok[0] == "w":
+            self._tok_wire -= 1
+            if self._wire_buf:
+                return self._wire_buf.popleft()
+            out = self._explode(self._recv_or_rebind())
+            self._wire_out -= len(out)
+            self._wire_buf.extend(out)
+            return self._wire_buf.popleft()
+        _kind, seq, route = tok[:3]
+        self._tok_ring -= 1
+        if len(tok) > 3:
+            return self._ring_resp(route, tok[3])
+        res = self._ring_wait(seq)
+        if res[0] == fastlane_mod.EXEC_ECANCELED:
+            return self._resubmit_canceled(route)
+        return self._ring_resp(route, res)
+
+    def _ring_wait(self, seq: int):
+        lane = self._lane
+        if lane is None:
+            raise VtpuConnectionLost(
+                "CONNECTION_LOST: the fastlane lane died with the broker "
+                "connection; ring executes in flight were lost")
+        try:
+            res = lane.wait_result(seq, self._rpc_timeout
+                                   if self._rpc_timeout > 0 else 120.0,
+                                   alive_check=self._broker_alive)
+        except ConnectionError:
+            self._on_disconnect()
+            raise AssertionError("unreachable")
+        self._feed_done(seq)
+        return res
+
+    def _ring_pending_resolve(self) -> None:
+        """Complete every ring token in place, in order, before a socket
+        send that could read their outputs.  A cancelled one is sent
+        again over the socket right here, before anything later, and its
+        token becomes a socket token."""
+        if self._lane is None or not self._tok_ring:
+            return
+        for i, tok in enumerate(self._pending):
+            if tok[0] != "r" or len(tok) > 3:
+                continue
+            res = self._ring_wait(tok[1])
+            if res[0] == fastlane_mod.EXEC_ECANCELED:
+                self.fl_resubmits += 1
+                self._fl_gate_in = 0
+                try:
+                    P.send_msg(self.sock, self._maybe_stamp(
+                        self._resubmit_msg(tok[2])))
+                except (ConnectionError, P.ProtocolError, OSError):
+                    self._on_disconnect()
+                self._pending[i] = ("w",)
+                self._tok_ring -= 1
+                self._tok_wire += 1
+                self._wire_out += 1
+            else:
+                self._pending[i] = tok + (res,)
+
+    def _route(self, lane, eid: str, arg_ids: List[str],
+               out_ids: List[str]):
+        """The route of (eid, args, outs), bound with FASTBIND on first
+        use; None while the program is unprimed or the lane changed."""
+        last = self._fl_last
+        if last is not None and last[0] == eid and last[1] == arg_ids \
+                and last[2] == out_ids:
+            return last[3]
+        key = (eid, tuple(arg_ids), tuple(out_ids))
+        route = self._routes.get(key)
+        if route is None or route == "prime":
+            if not lane.usable():
+                return None
+            try:
+                rep = self._rpc({"kind": P.FASTBIND, "exe": eid,
+                                 "args": arg_ids, "outs": out_ids})
+            except RuntimeError_ as e:
+                if not str(e).startswith(("FASTLANE_OFF", "NOT_FOUND")):
+                    raise
+                return None     # the socket answers for it
+            rid = int(rep.get("route", -1))
+            if rid < 0:
+                # Never run over the socket: this step goes there.
+                self._routes[key] = "prime"
+                return None
+            route = {"id": rid, "cost": float(rep.get("cost_us") or 5000.0),
+                     "metas": rep.get("outs") or [], "key": key}
+            self._routes[key] = route
+            if self._lane is not lane:
+                # The round trip rode a reconnect: the route belongs to the
+                # new lane; this step goes over the socket.
+                return None
+        self._fl_last = (eid, arg_ids, out_ids, route)
+        return route
+
+    def _fastlane_send(self, eid: str, arg_ids: List[str],
+                       out_ids: List[str], feed=None,
+                       feed_arg: int = 0) -> bool:
+        """One unchained execute onto the ring; False sends it over the
+        socket (unprimed program, gate not open, feed window full).
+        ``feed`` rides the tx arena as the descriptor's blob."""
+        lane = self._lane
+        route = self._route(lane, eid, arg_ids, out_ids)
+        if route is None:
+            return False
+        self._fl_gate_in -= 1
+        if self._fl_gate_in < 0:
+            self._fl_gate_in = 63
+            if not lane.usable():
+                # Parked or closed: give back the lease held at the
+                # broker's last word and go over the socket.
+                lane.release_lease()
+                self._fl_gate_in = 0
+                return False
+        # Socket work in flight is not overtaken by a ring execute.
+        if self._pending_batch:
+            self._flush_batch()
+        if self._tok_wire:
+            while self._pending and self._pending[0][0] == "w":
+                self._ready.append(self._next_pending_reply())
+            if self._tok_wire:
+                return False
+        f_off = f_len = 0
+        if feed is not None:
+            flat = tensor_bytes(feed)
+            f_len = len(flat)
+            f_off = lane.feed_alloc(f_len)
+            if f_off is None:
+                return False
+            lane.tx[f_off:f_off + f_len] = flat
+        seq = lane.buffer(route["id"], route["cost"], f_off, f_len,
+                          feed_arg if feed is not None else 0)
+        if feed is not None:
+            self._fl_feed_seqs.add(seq)
+        if lane.buffered >= 32:
+            try:
+                lane.flush(self._broker_alive)
+            except ConnectionError:
+                self._on_disconnect()
+                raise AssertionError("unreachable")
+        self._pending.append(("r", seq, route))
+        self._tok_ring += 1
+        return True
+
+    def feed_capable(self) -> bool:
+        """Whether per-step host batches can ride the tx arena (a lane
+        with an arena, ``VTPU_ARENA_FEED`` on)."""
+        lane = self._lane
+        return (lane is not None and lane.tx is not None
+                and fastlane_mod.arena_feed_enabled())
+
+    def _feed_write(self, flats) -> Optional[List[int]]:
+        """Host batches copied into the tx arena's feed window; their
+        offsets, or None when even a drained window cannot hold them."""
+        lane = self._lane
+        offs: List[int] = []
+        for flat in flats:
+            nb = len(flat)
+            off = lane.feed_alloc(nb)
+            if off is None:
+                # Full: the pipeline drains (reading the replies frees
+                # every region) and the window starts over.
+                self._sync_prelude()
+                if self._lane is not lane:
+                    return None
+                lane.feed_reset()
+                off = lane.feed_alloc(nb)
+                if off is None:
+                    lane.feed_release(len(offs))
+                    return None
+            lane.tx[off:off + nb] = flat
+            offs.append(off)
+        return offs
+
+    def execute_send_feed(self, eid: str, arg_ids: Sequence[str],
+                          out_ids: Sequence[str], feeds, feed_arg: int = 0,
+                          repeats: int = 1,
+                          carry: Sequence[Sequence[int]] = ((0, 0),),
+                          free: Sequence[str] = ()) -> bool:
+        """A pipelined execute whose host batch rides the tx arena, not a
+        socket PUT: ``feeds`` is one tensor (or numpy array), or one per
+        step of a chain.  Unchained, the batch binds in the broker under
+        ``arg_ids[feed_arg]``, replacing it and charged like the PUT it
+        stands for.  Once a socket feed has bound that id, later
+        unchained steps put the batch in a ring descriptor.  False when
+        the arena cannot carry it (no lane, ``VTPU_ARENA_FEED=0``, larger
+        than the feed window): send a PUT instead.  Consumes one reply,
+        like ``execute_send_ids``."""
+        lane = self._lane
+        if not self.feed_capable() or not lane.usable():
+            return False
+        ts = [as_tensor(a) for a in (feeds if isinstance(feeds, (list, tuple))
+                                     else [feeds])]
+        if not ts or (repeats > 1 and len(ts) not in (1, repeats)):
+            return False
+        fid = str(arg_ids[feed_arg])
+        key = (eid, fid, int(feed_arg))
+        if repeats <= 1 and len(ts) == 1 and not free \
+                and key in self._fed_routes:
+            if self._fastlane_send(eid, list(arg_ids), list(out_ids),
+                                   feed=ts[0], feed_arg=feed_arg):
+                return True
+            self._ring_pending_resolve()
+        offs = self._feed_write([tensor_bytes(t) for t in ts])
+        if offs is None:
+            return False
+        item: Dict[str, Any] = {
+            "exe": eid, "args": list(arg_ids), "outs": list(out_ids),
+            "feeds": [[fid, int(feed_arg), int(off), t.numel()
+                       * t.element_size(), list(t.shape),
+                       dtype_name(t.dtype)] for t, off in zip(ts, offs)]}
+        if repeats > 1:
+            item["repeats"] = int(repeats)
+            item["carry"] = [list(p) for p in carry]
+        if free:
+            item["free"] = list(free)
+        self._fl_feed_wire += len(offs)
+        self._fed_routes.add(key)
+        self._pending_batch.append(item)
+        if len(self._pending_batch) >= max(self._batch_max, 1):
+            self._flush_batch()
+        return True
 
     def execute_recv(self) -> List[RemoteArray]:
         resp = self.recv_reply()

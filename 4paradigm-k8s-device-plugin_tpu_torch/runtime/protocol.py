@@ -12,9 +12,12 @@ a pooled buffer.
 
 The verbs, their tables and the header fields are ``vtpu``'s, so a
 ``vtpu`` client talks to the port's broker and the port's client to
-``vtpu``'s.  The verbs whose modules are not ported yet (TRACE and SLO
-answer disabled; FASTBIND, DRAIN, HANDOVER, RESIZE, MIGRATE*, REPL_SYNC
-refuse) keep their names here: they are part of the wire.  A dtype
+``vtpu``'s, the fastlane's too: the HELLO's ``fastlane`` and its reply's
+lane, FASTBIND, a PUT's ``arena_off``, a GET's ``arena`` and the feeds of
+an execute; the arena fds follow the HELLO reply as SCM_RIGHTS on a
+one-byte message.  The verbs whose modules are not ported yet (SLO answers
+disabled; MIGRATE*, REPL_SYNC refuse) keep their names here: they are part
+of the wire.  A dtype
 crosses as its name (``utils.dtypes``), bf16 as ``"bfloat16"``.
 """
 

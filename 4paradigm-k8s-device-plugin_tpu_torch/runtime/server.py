@@ -92,13 +92,33 @@ are read, at ``dispatch`` and at ``reply`` (``runtime/faults.py``); a
 claim of the cards that hangs past ``VTPU_CLAIM_WATCHDOG_S`` exits 3
 with a ``wedge`` record naming the lease holder.
 
-Not here yet, each refused with the ROADMAP item that holds it: the
-fastlane (FASTBIND), the SLO plane (SLO answers ``enabled: false``),
-migration and replication (MIGRATE*, REPL_SYNC, ``--cluster``; of
-``replication.py`` only the journal's ``Fence`` is here).  Also left out
-of this core: rate leases, burst credits, preemption, overload shedding,
-host spill of an oversubscribed tenant, PUT dedup and grants over
-several cards.
+**A tenant's indices are bounded** (``bound_indices``): on CUDA an index
+op checks its indices with a device-side assert, which would end the
+broker for every tenant, so ``load_program`` rewrites each index op to
+XLA's rules, which ``vtpu`` serves (a gather clamps, a scatter drops).
+The socket's dispatcher and the fastlane's drainer run the same bounded
+program.
+
+**Rate leases** (``VTPU_RATE_LEASE_US``): one bucket acquire pre-debits a
+quantum that the dispatcher's later admissions burn; an execute reply
+carries it, SUSPEND, RESIZE, DRAIN and teardown give it back.
+
+**The fastlane** (``runtime/fastlane.py``): a client that asks in HELLO
+gets a ring and two shared-memory arenas; its unchained executes ride the
+ring to the card's drainer, PUT and GET of a tensor that fits move through
+the arenas, and an execute's host batches ride as arena feeds.  The
+drainer queues on the card's stream beside the dispatcher
+(``ChipState.launch_mu`` keeps each batch's launches together) and each
+batch is billed its device time from CUDA events.  SUSPEND parks the
+ring's gate, DRAIN and HANDOVER park every gate while dispatch pauses,
+RESIZE parks it for a pass, teardown and a second connection close it.
+
+Not here yet, each refused with the ROADMAP item that holds it: the SLO
+plane (SLO answers ``enabled: false``), migration and replication
+(MIGRATE*, REPL_SYNC, ``--cluster``; of ``replication.py`` only the
+journal's ``Fence`` is here).  Also left out of this core: burst credits,
+preemption, overload shedding, host spill of an oversubscribed tenant, PUT
+dedup and grants over several cards.
 
 Run: python -m vtpu_torch.runtime.server --socket /tmp/rt.sock \\
         --hbm-limit 8Gi --core-limit 50 [--journal-dir DIR] [--device cpu]
@@ -112,6 +132,7 @@ import contextlib
 import glob
 import hashlib
 import json
+import math
 import operator
 import os
 import queue
@@ -130,7 +151,9 @@ from ..ops import flash_attention as _fa  # noqa: F401 - registers K1's op
 from ..shim.core import SharedRegion
 from ..utils import envspec
 from ..utils import logging as log
-from ..utils.dtypes import dtype_name, tensor_bytes, tensor_from_bytes
+from ..utils.dtypes import (dtype_name, tensor_bytes, tensor_from_bytes,
+                            torch_dtype)
+from . import fastlane as fastlane_mod
 from . import faults
 from . import protocol as P
 from . import replication as repl_mod
@@ -153,11 +176,18 @@ MAX_QUEUED_US = int(os.environ.get("VTPU_MAX_QUEUE_US", "4000000"))
 WAKE_BATCH = max(int(os.environ.get("VTPU_WAKE_BATCH", "32")), 1)
 # A device fault ends the broker with this code (the daemon restarts it).
 DEVICE_FAULT_EXIT = 3
+# One scheduler quantum (µs): the ceiling on a rate lease, so a tenant never
+# holds more pre-debited device time than this.
+SCHED_QUANTUM_US = 100_000
+# Rate leases: one token-bucket acquire funds a quantum of this many µs,
+# which later dispatches burn with plain arithmetic (0: one acquire per
+# item).  The fastlane's client burns leases of the same size.
+RATE_LEASE_US = min(int(os.environ.get("VTPU_RATE_LEASE_US", "20000") or 0),
+                    SCHED_QUANTUM_US)
 
 # The sub-items of ROADMAP.md Queue 1 item 6 that hold what this broker
 # refuses.
 _DEFERRED = {
-    P.FASTBIND: "6(c), the fastlane",
     P.MIGRATE: "6(d), migration and replication",
     P.MIGRATE_OUT: "6(d), migration and replication",
     P.MIGRATE_IN: "6(d), migration and replication",
@@ -277,6 +307,295 @@ def _vet_graph(blob: bytes) -> bytes:
     return json.dumps(doc).encode()
 
 
+# -- bounding a tenant's indices -----------------------------------------------
+# On CUDA the index ops on the list check their indices (bernoulli its
+# probabilities) with a device-side assert, which leaves the card's context
+# unusable and so ends the broker for every tenant.  The indices are the
+# tenant's data, which COMPILE cannot see, so ``bound_indices`` rewrites
+# each such op before the graph runs, with ops on the list only, to XLA's
+# rules, which ``vtpu`` serves: a gather clamps its indices (``index``
+# first wraps [-n, 0), as ``x[i]`` does), a scatter drops its
+# out-of-range updates (``x.at[i].set/add``), ``one_hot`` gives a row of
+# zeros (``jax.nn.one_hot``), and bernoulli's probabilities clamp into
+# [0, 1] with NaN as 0 (``uniform < p``).  In-range indices give the same
+# bits as before.  A non-empty gather from a dim of size 0 has nothing to
+# clamp to, and a scatter into a 0-d tensor no dim to pad: both are
+# refused at COMPILE.
+
+_A = torch.ops.aten
+# Overloads whose operands cannot be bounded: repeat_interleave with a
+# tensor of repeats asserts on the card when the repeats do not sum to
+# the output size the graph fixed.
+_REFUSED_OVERLOADS = frozenset({("repeat_interleave", "Tensor"),
+                                ("repeat_interleave", "self_Tensor")})
+
+
+def _args(node) -> Dict[str, Any]:
+    """A call's arguments by schema name, defaults filled in."""
+    out = {}
+    for i, a in enumerate(node.target._schema.arguments):
+        if i < len(node.args) and not a.kwarg_only:
+            out[a.name] = node.args[i]
+        elif a.name in node.kwargs:
+            out[a.name] = node.kwargs[a.name]
+        elif a.has_default_value():
+            out[a.name] = a.default_value
+    return out
+
+
+def _set_arg(node, name: str, value) -> None:
+    for i, a in enumerate(node.target._schema.arguments):
+        if a.name != name:
+            continue
+        if i < len(node.args) and not a.kwarg_only:
+            args = list(node.args)
+            args[i] = value
+            node.args = tuple(args)
+        else:
+            node.kwargs = {**node.kwargs, name: value}
+        return
+
+
+def _shape(v) -> Tuple[int, ...]:
+    return tuple(int(x) for x in v.meta["val"].shape)
+
+
+class _Bounder:
+    """Inserts the bounding nodes of one call before it.  Each new node
+    carries its fake value (``meta["val"]``), so a bounded op may read the
+    output of another."""
+
+    def __init__(self, graph):
+        self.g = graph
+
+    def op(self, target, *args):
+        node = self.g.call_function(target, tuple(args))
+        node.meta["val"] = target(*torch.fx.node.map_arg(
+            args, lambda a: a.meta["val"]))
+        return node
+
+    @staticmethod
+    def size(n: int, idx, what: str) -> int:
+        """``n``, the size of the dim ``idx`` indexes: a non-empty index
+        into an empty dim has nothing to clamp to, and is refused."""
+        if n == 0 and math.prod(_shape(idx)):
+            raise InvalidProgram(f"{what} indexes a dim of size 0 with a "
+                                 "non-empty index")
+        return n
+
+    def in_range(self, idx, n: int):
+        return self.op(_A.logical_and.default,
+                       self.op(_A.ge.Scalar, idx, 0),
+                       self.op(_A.lt.Scalar, idx, n))
+
+    def wrap(self, idx, n: int):
+        """[-n, 0) -> [0, n), as Python indexing reads a negative."""
+        return self.op(_A.where.self, self.op(_A.lt.Scalar, idx, 0),
+                       self.op(_A.add.Tensor, idx, n), idx)
+
+    def clamp(self, idx, n: int):
+        return self.op(_A.clamp.default, idx, 0, n - 1) if n else idx
+
+    def pad(self, x, ndim: int, dims):
+        """``x`` with one zero slot appended on each of ``dims``."""
+        pad = []
+        for d in reversed(range(ndim)):
+            pad += [0, 1 if d in dims else 0]
+        return self.op(_A.constant_pad_nd.default, x, pad)
+
+    def cut(self, x, sizes: Dict[int, int]):
+        for d, n in sizes.items():
+            x = self.op(_A.slice.Tensor, x, d, 0, n)
+        return x
+
+
+def _replace_output(graph, node, build) -> None:
+    """Route ``node``'s users to ``build(node)``, built right after it."""
+    with graph.inserting_before(node.next):
+        new = build(node)
+    node.replace_all_uses_with(new, delete_user_cb=lambda u: u is not new
+                               and not _feeds(u, new))
+
+
+def _feeds(user, new) -> bool:
+    """Whether ``user`` is one of the nodes between ``node`` and ``new``
+    that ``build`` made (they must keep reading ``node``)."""
+    seen, stack = set(), [new]
+    while stack:
+        n = stack.pop()
+        if n is user:
+            return True
+        if n in seen:
+            continue
+        seen.add(n)
+        stack.extend(a for a in n.all_input_nodes)
+    return False
+
+
+def _scatter_into_pad(graph, node, b: _Bounder, target, dims: Dict[int, int],
+                      set_indices) -> None:
+    """Drop a scatter's out-of-range updates: ``target`` gets one slot
+    padded on each of ``dims`` (dim -> size), ``set_indices()`` (run
+    before ``node``) sends those updates there, and the slot is cut off
+    ``node``'s output.  A 0-d target has no dim to pad: refused (its
+    one element is what ``where`` would write)."""
+    if not _shape(target):
+        raise InvalidProgram(f"{node.target} into a 0-d tensor")
+    with graph.inserting_before(node):
+        set_indices()
+        padded = b.pad(target, len(_shape(target)), set(dims))
+        _set_arg(node, "self", padded)
+    node.meta["val"] = padded.meta["val"]
+    _replace_output(graph, node, lambda x: b.cut(x, dims))
+
+
+def _bound_call(graph, node) -> bool:
+    """Bound one call's index operands; False when it needs none."""
+    name = node.target._schema.name.split("::")[-1]
+    overload = node.target._overloadname
+    a = _args(node)
+    b = _Bounder(graph)
+    if name in ("gather", "index_select"):
+        src, idx = a["self"], a["index"]
+        shape = _shape(src)
+        n = b.size(shape[a["dim"] % len(shape)] if shape else 1, idx, name)
+        with graph.inserting_before(node):
+            _set_arg(node, "index", b.clamp(idx, n))
+        return bool(n)
+    if name == "embedding":
+        n = b.size(_shape(a["weight"])[0], a["indices"], name)
+        with graph.inserting_before(node):
+            _set_arg(node, "indices", b.clamp(a["indices"], n))
+        return bool(n)
+    if name == "take_along_dim":
+        shape = _shape(a["self"])
+        dim = a.get("dim")
+        n = b.size(math.prod(shape) if dim is None
+                   else shape[dim % len(shape)] if shape else 1,
+                   a["indices"], name)
+        with graph.inserting_before(node):
+            _set_arg(node, "indices", b.clamp(a["indices"], n))
+        return bool(n)
+    if name == "index":
+        shape = _shape(a["self"])
+        new = []
+        with graph.inserting_before(node):
+            for d, idx in _index_dims(a["indices"]):
+                if d is None:
+                    new.append(idx)
+                    continue
+                n = b.size(shape[d], idx, name)
+                new.append(b.clamp(b.wrap(idx, n), n) if n else idx)
+            _set_arg(node, "indices", new)
+        return True
+    if name == "index_put":
+        _bound_index_put(graph, node, a, b)
+        return True
+    if name in ("scatter", "scatter_add"):
+        shape = _shape(a["self"])
+        dim = a["dim"] % max(len(shape), 1)
+        n = shape[dim] if shape else 1
+        idx = a["index"]
+
+        def send():
+            ok = b.in_range(idx, n)
+            _set_arg(node, "index", b.op(_A.where.ScalarOther, ok, idx, n))
+        _scatter_into_pad(graph, node, b, a["self"], {dim: n}, send)
+        return True
+    if name == "one_hot":
+        x, n = a["self"], int(a["num_classes"])
+        if n <= 0:
+            return False
+        with graph.inserting_before(node):
+            ok = b.in_range(x, n)
+            _set_arg(node, "self", b.op(_A.where.ScalarOther, ok, x, 0))
+        _replace_output(graph, node, lambda y: b.op(
+            _A.mul.Tensor, y, b.op(_A.unsqueeze.default, ok, -1)))
+        return True
+    if name == "bernoulli":
+        key = "p" if overload == "Tensor" else (
+            "self" if overload in ("", "default") else None)
+        if key is None:
+            return False    # a float p is checked on the host
+        with graph.inserting_before(node):
+            p = b.op(_A.nan_to_num.default, a[key], 0.0)
+            _set_arg(node, key, b.op(_A.clamp.default, p, 0.0, 1.0))
+        return True
+    return False
+
+
+def _index_dims(indices):
+    """(the dim an integer index reads, or None for a mask or a None
+    entry; the entry) for each entry of an ``index`` or ``index_put``
+    list: a bool or uint8 mask of k dims covers k dims."""
+    d = 0
+    for idx in indices:
+        if idx is None:
+            yield None, idx
+            d += 1
+        elif idx.meta["val"].dtype in (torch.bool, torch.uint8):
+            yield None, idx
+            d += idx.meta["val"].dim()
+        else:
+            yield d, idx
+            d += 1
+
+
+def _bound_index_put(graph, node, a, b: _Bounder) -> None:
+    """Out-of-range updates, with or without accumulate, go to a slot
+    padded onto each integer-indexed dim and cut off."""
+    shape = _shape(a["self"])
+    found = [(k, d, idx) for k, (d, idx) in enumerate(_index_dims(
+        a["indices"])) if d is not None]
+    if not found:
+        return
+
+    def send():
+        ws = [b.wrap(idx, shape[d]) for _k, d, idx in found]
+        ok = None
+        for (_k, d, _i), w in zip(found, ws):
+            o = b.in_range(w, shape[d])
+            ok = o if ok is None else b.op(_A.logical_and.default, ok, o)
+        new = list(a["indices"])
+        for (k, d, _i), w in zip(found, ws):
+            new[k] = b.op(_A.where.ScalarOther, ok, w, shape[d])
+        _set_arg(node, "indices", new)
+    _scatter_into_pad(graph, node, b, a["self"],
+                      {d: shape[d] for _k, d, _i in found}, send)
+
+
+def bound_indices(gm) -> int:
+    """Rewrite the index ops of a loaded program's graph so that no
+    operand a tenant sends can trip a device-side assert (the comment
+    above); returns how many calls were bounded.  Raises InvalidProgram
+    for an overload that cannot be bounded."""
+    graph = gm.graph
+    n = 0
+    for node in list(graph.nodes):
+        if node.op != "call_function" \
+                or not isinstance(node.target, torch._ops.OpOverload):
+            continue
+        name = node.target._schema.name.split("::")[-1]
+        if (name, node.target._overloadname) in _REFUSED_OVERLOADS:
+            raise InvalidProgram(f"op {node.target} is not one a program "
+                                 "may call (its bounds check is a "
+                                 "device-side assert on the tenant's data)")
+        if name in _BOUNDED_OPS and _bound_call(graph, node):
+            n += 1
+    if n:
+        graph.lint()
+        gm.recompile()
+    return n
+
+
+_BOUNDED_OPS = frozenset({"gather", "index_select", "embedding",
+                          "take_along_dim", "index", "index_put",
+                          "scatter", "scatter_add", "one_hot", "bernoulli"})
+
+
+_LOAD_MU = threading.Lock()
+
+
 def load_program(blob: bytes, device: torch.device) -> "Program":
     """A program from a vetted graph, moved to ``device``."""
     from torch._export.serde.serialize import SerializedArtifact, deserialize
@@ -284,7 +603,10 @@ def load_program(blob: bytes, device: torch.device) -> "Program":
 
     graph = _vet_graph(blob)
     try:
-        ep = deserialize(SerializedArtifact(graph, b"", b"", b""))
+        # torch's deserializer keeps its state in a module global: two
+        # sessions loading at once would trip over each other.
+        with _LOAD_MU:
+            ep = deserialize(SerializedArtifact(graph, b"", b"", b""))
     except Exception as e:  # noqa: BLE001 - any malformed graph
         raise InvalidProgram(f"graph does not load: "
                              f"{type(e).__name__}: {e}") from None
@@ -328,8 +650,11 @@ def load_program(blob: bytes, device: torch.device) -> "Program":
         v = o.meta["val"]
         out_meta.append({"shape": list(v.shape), "dtype": dtype_name(v.dtype),
                          "nbytes": v.numel() * v.element_size()})
-    return Program(ep.module(), in_meta, out_meta,
-                   hashlib.sha256(blob).hexdigest())
+    fn = ep.module()
+    # The same bounded module serves the socket's dispatcher and the
+    # fastlane's drainer.
+    bound_indices(fn)
+    return Program(fn, in_meta, out_meta, hashlib.sha256(blob).hexdigest())
 
 
 class Program:
@@ -348,20 +673,31 @@ class Program:
         self.warmed = set()
         self.sha = sha
 
-    def run(self, args: List[torch.Tensor], steps: int,
-            carry) -> List[torch.Tensor]:
+    def run(self, args: List[torch.Tensor], steps: int, carry,
+            step_args=None) -> List[torch.Tensor]:
         """``steps`` calls, each step's mapped outputs fed back into the
         next step's arguments (K-1 carried calls and one plain call whose
-        outputs all return); nothing synchronises with the device.  Every
+        outputs all return); nothing synchronises with the device.
+        ``step_args`` (arena feeds) maps argument positions to each step's
+        tensor, the last entry serving the steps past the list.  Every
         output owns a storage of its own size: one that is a view of an
         argument, of another output or of a larger tensor is copied, or
         it would hold memory its ledger entry does not charge."""
         cur = list(args)
-        for _ in range(steps - 1):
+        for s in range(steps):
+            # Checked whenever an argument is new: the first step, the
+            # first carried one and each step an arena feed replaces.
+            fresh = s <= 1
+            if step_args:
+                for pos, v in step_args[min(s, len(step_args) - 1)].items():
+                    cur[pos] = v
+                fresh = fresh or s < len(step_args)
+            if fresh:
+                self._check(cur, "arguments")
             outs = self._call(cur)
-            for oi, ai in carry:
-                cur[ai] = outs[oi]
-        outs = self._call(cur)
+            if s < steps - 1:
+                for oi, ai in carry:
+                    cur[ai] = outs[oi]
         seen = {a.untyped_storage().data_ptr() for a in args}
         for i, o in enumerate(outs):
             st = o.untyped_storage()
@@ -370,6 +706,16 @@ class Program:
                 outs[i] = o = o.clone(memory_format=torch.contiguous_format)
             seen.add(o.untyped_storage().data_ptr())
         return outs
+
+    def _check(self, args, what: str) -> None:
+        """The graph's inputs, exactly: count, shapes, dtypes."""
+        if len(args) != len(self.in_meta) or any(
+                tuple(a.shape) != shape or a.dtype != dtype
+                for a, (shape, dtype) in zip(args, self.in_meta)):
+            raise ValueError(
+                f"{what} {[(list(a.shape), dtype_name(a.dtype)) for a in args]}"
+                f" do not match the program's inputs "
+                f"{[(list(s), dtype_name(d)) for s, d in self.in_meta]}")
 
     def _call(self, args) -> List[torch.Tensor]:
         outs = self.fn(*args)
@@ -417,6 +763,30 @@ class Tenant:
         self.client_pid: Optional[int] = None
         self.client_pidns: Optional[int] = None
         self.recovered = False
+        # Bumped by every drop: a fastlane route swaps its outputs' tensors
+        # only while the table is as it left it.
+        self.arrays_ver = 0
+        # The fastlane (runtime/fastlane.py): the lane, None on the socket
+        # path, and the ring's depth at the last drain.
+        self.fastlane = None
+        self.fastlane_depth = 0
+        # The rate lease: device time pre-debited from the bucket and burnt
+        # by the dispatcher, guarded by the card's scheduler.mu (a reply
+        # reads it unlocked: the client's copy is a hint).
+        self.lease_us = 0.0
+        self.lease_exp = 0.0
+        self.lease_revoked = False
+        self.lease_grants = 0
+
+    def lease_release(self) -> None:
+        """Refund the unburnt lease (expiry, suspend, resize, drain,
+        teardown).  Caller holds the card's scheduler.mu or owns the
+        tenant."""
+        left = int(self.lease_us)
+        self.lease_us = 0.0
+        self.lease_exp = 0.0
+        if left > 0:
+            self.chip.region.rate_adjust(self.index, -left)
 
     def charge_array(self, nbytes: int) -> bool:
         """Admit ``nbytes`` against the slot's cap; False (nothing
@@ -435,6 +805,7 @@ class Tenant:
         self.ready.pop(aid, None)
         if self.arrays.pop(aid, None) is None:
             return 0
+        self.arrays_ver += 1
         nbytes = self.nbytes.pop(aid, 0)
         self.release_array(nbytes)
         if self.blob_meta.pop(aid, None) is not None:
@@ -502,8 +873,9 @@ class WorkItem:
 
     __slots__ = ("tenant", "session", "exe", "key", "arg_ids", "out_ids",
                  "steps", "carry", "metered", "est_us", "first_run",
-                 "free_ids", "batch", "batch_idx", "t_enq", "t_enq_wall",
-                 "t_bucket0", "bucket_wait_us", "trace_id", "trace_ts")
+                 "free_ids", "feeds", "batch", "batch_idx", "t_enq",
+                 "t_enq_wall", "t_bucket0", "bucket_wait_us", "trace_id",
+                 "trace_ts")
 
     def __init__(self, tenant, session, exe, key, arg_ids, out_ids,
                  steps=1, carry=(), free_ids=()):
@@ -521,6 +893,9 @@ class WorkItem:
         # Dropped at this item's dispatch: every earlier item of the
         # tenant's FIFO queue has resolved its arguments by then.
         self.free_ids = tuple(free_ids)
+        # Arena feeds: (id, argpos, offset, nbytes, shape, dtype) of host
+        # batches in the tenant's tx arena, copied out at dispatch.
+        self.feeds: tuple = ()
         self.batch: "Optional[_BatchReply]" = None
         self.batch_idx = 0
         self.t_enq = 0.0
@@ -704,10 +1079,7 @@ class DeviceScheduler:
                       float(self.state.min_exec_cost_us)) * item.steps
             metered = t.metered_on(now)
             if metered:
-                # The region's bucket: priority 0 borrows instead of
-                # waiting (vtpu_core.h).
-                wait_ns = self.chip.region.rate_acquire(t.index, int(est),
-                                                        t.priority)
+                wait_ns = self._lease_admit_locked(t, est, now)
                 if wait_ns:
                     # The item now waits on the bucket, not the queue:
                     # its bucket phase starts (the first throttle wins).
@@ -729,6 +1101,35 @@ class DeviceScheduler:
             return item, soonest
         return None, soonest
 
+    def _lease_admit_locked(self, t: Tenant, est: float, now: float) -> int:
+        """Admit ``est`` µs for one item; the nanoseconds to wait (0:
+        admitted).  With leases on, most admissions burn the lease: one
+        acquire pre-debits a quantum from the same bucket the co-tenants
+        read.  Priority 0 borrows instead of waiting (vtpu_core.h).  Caller
+        holds self.mu."""
+        region = self.chip.region
+        q = float(self.state.rate_lease_us)
+        if q <= 0:
+            return region.rate_acquire(t.index, int(est), t.priority)
+        if t.lease_us > 0.0 and now >= t.lease_exp:
+            # Expired: an idle tenant's pre-debit flows back.
+            t.lease_release()
+        if t.lease_us >= est:
+            t.lease_us -= est
+            return 0
+        if region.rate_acquire(t.index, int(est + q), t.priority) == 0:
+            t.lease_us += q
+            t.lease_exp = now + self.state.rate_lease_ttl_s
+            t.lease_grants += 1
+            return 0
+        # The bucket cannot fund a quantum: the exact ask, less what the
+        # lease holds, so a throttled tenant pays nothing for the lease.
+        need = max(est - t.lease_us, 1.0)
+        wait_ns = region.rate_acquire(t.index, int(need), t.priority)
+        if wait_ns == 0:
+            t.lease_us = 0.0
+        return wait_ns
+
     def _dispatch_loop(self):
         while not self._stop:
             with self.mu:
@@ -746,7 +1147,7 @@ class DeviceScheduler:
                     continue
             done = []
             ready = _Ready()
-            with self.chip.context():
+            with self.chip.launch_mu, self.chip.context():
                 try:
                     for item in items:
                         r = self._dispatch_item(item, ready)
@@ -776,15 +1177,33 @@ class DeviceScheduler:
         need = sum(m["nbytes"] for m in item.exe.out_meta)
         admitted = False
         try:
+            fed = self._feeds(item) if item.feeds else []
             with t.mu:
                 for fid in item.free_ids:
                     t.drop_array(fid)
+                step_args = None
+                if fed and item.steps == 1:
+                    # An unchained feed binds under its id, replacing it,
+                    # and is charged like the PUT it stands for.
+                    for (fid, ap, _o, nb, _s, _d), a in zip(item.feeds, fed):
+                        t.drop_array(fid)
+                        if not t.charge_array(nb):
+                            raise MemoryError(
+                                f"RESOURCE_EXHAUSTED: feed of {nb} bytes "
+                                f"over tenant {t.name}'s HBM quota")
+                        t.arrays[fid] = a
+                        t.nbytes[fid] = nb
+                elif fed:
+                    step_args = [{f[1]: a} for f, a in zip(item.feeds, fed)]
                 args = []
                 for aid in item.arg_ids:
                     a = t.arrays.get(aid)
                     if a is None:
                         raise KeyError(f"NOT_FOUND: {aid}")
                     args.append(a)
+                if step_args:
+                    for pos, a in step_args[0].items():
+                        args[pos] = a
             if not t.charge_array(need):
                 free, total = self.chip.region.mem_info(t.index)
                 raise MemoryError(
@@ -792,7 +1211,7 @@ class DeviceScheduler:
                     f"outputs of {need} bytes, quota {total} (free {free})")
             admitted = True
             with torch.inference_mode():
-                outs = item.exe.run(args, item.steps, item.carry)
+                outs = item.exe.run(args, item.steps, item.carry, step_args)
             event = (self.chip.record(timing=True)
                      if self.state.flight.enabled else None)
             with t.mu:
@@ -827,6 +1246,19 @@ class DeviceScheduler:
         item.exe.warmed.add((item.steps, item.carry))
         item.session.complete_execute(item, metas, None, item.est_us)
         return (item, t0, outs, event)
+
+    def _feeds(self, item: WorkItem) -> List[torch.Tensor]:
+        """An item's arena feeds on its card: copied out of the tx arena
+        now (the client reuses the region once the reply lands), then to
+        the card on its stream without waiting for the stream."""
+        lane = item.tenant.fastlane
+        tx = lane.tx_view() if lane is not None else None
+        if tx is None:
+            raise KeyError("NOT_FOUND: feed arena (the fastlane lane is "
+                           "gone)")
+        return [to_card(tensor_from_bytes(bytearray(tx[off:off + nb]), dt,
+                                          shape), self.chip)
+                for _fid, _ap, off, nb, shape, dt in item.feeds]
 
     def _retire_many(self, items) -> None:
         with self.mu:
@@ -925,10 +1357,9 @@ class DeviceScheduler:
                     per_step = item.est_us * learn_scale / item.steps
             region.busy_add(t.index, int(busy_us))
             if item.metered:
-                charged = max(busy_us, min_cost * item.steps)
-                region.rate_adjust(
-                    t.index, int(min(charged, item.est_us * 4.0)
-                                 - item.est_us))
+                region.rate_adjust(t.index, int(fastlane_mod.bill_us(
+                    busy_us, item.est_us, item.steps, min_cost)
+                    - item.est_us))
             if per_step is not None:
                 t.cost_ema[item.key] = (prev_ema * 0.7
                                         + min(per_step, prev_ema * 4.0) * 0.3)
@@ -1042,6 +1473,16 @@ class DeviceScheduler:
         self.kick()
 
 
+def to_card(host: torch.Tensor, chip: "ChipState") -> torch.Tensor:
+    """A host tensor copied to ``chip`` on the caller's stream (the card's,
+    in ``chip.context()``) from pinned memory, so the copy does not wait
+    for the work queued before it; the caching host allocator keeps the
+    pinned buffer until the copy has run."""
+    if chip.stream is None:
+        return host.to(chip.device)
+    return host.pin_memory().to(chip.device, non_blocking=True)
+
+
 def _my_pidns() -> int:
     try:
         return os.stat("/proc/self/ns/pid").st_ino
@@ -1107,6 +1548,9 @@ class ChipState:
         self.region.register()
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
+        # Held while a dispatch batch or a fastlane batch queues its
+        # launches, so each batch's events bracket its own work.
+        self.launch_mu = threading.Lock()
         # GETs of execute outputs copy here, beside the card's stream.
         self.side = (torch.cuda.Stream(device) if device.type == "cuda"
                      else None)
@@ -1255,6 +1699,12 @@ class RuntimeState:
         self.default_hbm = hbm_limit
         self.default_core = core_limit
         self.min_exec_cost_us = min_exec_cost_us
+        # The rate lease's quantum (µs; 0: one bucket acquire per item) and
+        # the wall time after which an unburnt lease refunds.
+        self.rate_lease_us = RATE_LEASE_US
+        self.rate_lease_ttl_s = max(4.0 * RATE_LEASE_US / 1e6, 0.05)
+        # The fastlane's lanes, drainers and meters (runtime/fastlane.py).
+        self.fastlane = fastlane_mod.FastlaneHub(self)
         self.tenants: Dict[str, Tenant] = {}
         # Admin-suspended tenant names: their queues stop dispatching.
         self.suspended: set = set()
@@ -1546,10 +1996,21 @@ class RuntimeState:
         deadline = time.monotonic() + max(timeout, 0.0)
         with self.chips_mu:
             chips = list(self.chips.values())
+        with self.mu:
+            tenants = list(self.tenants.values())
+        for t in tenants:
+            # The successor seeds fresh buckets: a lease left with a
+            # client would be granted twice.
+            with t.chip.scheduler.mu:
+                t.lease_release()
+                t.lease_revoked = True
         try:
             for chip in chips:
                 chip.scheduler.quiesce_all(
                     max(deadline - time.monotonic(), 0.0))
+            # The drainers park every lane's gate while dispatch is paused
+            # and the meters bill what the lanes queued.
+            self.fastlane.quiesce_all(max(deadline - time.monotonic(), 0.0))
             if self.journal is not None:
                 self.journal.write_snapshot(self._snapshot_dict)
         finally:
@@ -1557,6 +2018,7 @@ class RuntimeState:
                 self.dispatch_paused = False
                 for chip in chips:
                     chip.scheduler.kick()
+                # The drainers reopen the parked gates on their next pass.
         with self.mu:
             return len(self.tenants) + len(self.recovered)
 
@@ -1621,6 +2083,13 @@ class RuntimeState:
         # Meter everything dispatched before the slot can recycle: a
         # late retirement would bill the slot's next tenant.
         t.chip.scheduler.quiesce(t.name)
+        # The same for the lane: its gate closes, what is in its ring
+        # cancels and refunds, and its batches on the card are billed;
+        # then the unburnt lease refunds.  If a reconnect wins the race
+        # below, that session goes over the socket until its next HELLO.
+        self.fastlane.quiesce_lane(t.name)
+        with t.chip.scheduler.mu:
+            t.lease_release()
         with self.mu:
             if t.connections > 0 or self.tenants.get(t.name) is not t:
                 return False  # a reconnect took it over meanwhile
@@ -1628,6 +2097,8 @@ class RuntimeState:
             t.chip.scheduler.forget_tenant(t.name)
             self.flight.forget(t.name)
             self.suspended.discard(t.name)
+        # The lane's files go with the tenant (file I/O, outside state.mu).
+        self.fastlane.close_lane(t.name)
         if self.journal is not None:
             try:
                 self.journal.append({"op": "close", "name": t.name})
@@ -1653,6 +2124,7 @@ class RuntimeState:
         return prog
 
     def stop(self) -> None:
+        self.fastlane.stop()
         for chip in list(self.chips.values()):
             chip.scheduler.stop()
 
@@ -1675,6 +2147,9 @@ def resize_tenant(t: Tenant, hbm_limit: Optional[int] = None,
     t.grant = {"hbm": new_hbm, "core": new_core}
     with t.chip.scheduler.mu:
         t._metered_cache = None
+        # A lease pre-debited at the old share does not outlive it.
+        t.lease_release()
+        t.lease_revoked = True
     return {"op": "resize", "name": t.name, "hbm": new_hbm,
             "core": new_core}
 
@@ -1683,6 +2158,7 @@ def resize_tenant(t: Tenant, hbm_limit: Optional[int] = None,
 
 def _stats_reply(state: RuntimeState) -> Dict[str, Any]:
     return {"ok": True, "tenants": collect_stats(state),
+            "fastlane": state.fastlane.stats(),
             "journal": state.journal_stats(),
             "pool": dict(state.pool_stats),
             "timers": state.timer_stats()}
@@ -1791,10 +2267,32 @@ class TenantSession(socketserver.BaseRequestHandler):
         # still releases the connection this HELLO took.
         tenant_box[0] = tenant
         self._journal_bind(tenant, msg)
-        self._send({"ok": True, "tenant_index": tenant.index,
-                    "chip": tenant.chip.index, "chips": [tenant.chip.index],
-                    "epoch": self.state.epoch, "created": created,
-                    "resumed": resumed})
+        # The fastlane: a lane when the client asks and the tenant has one
+        # connection (the ring is single-producer); a second connection of
+        # a laned tenant sends the first back to the socket.  A resumed
+        # tenant gets a fresh lane.
+        hub = self.state.fastlane
+        lane = None
+        if tenant.connections > 1:
+            hub.gate_close(tenant.name)
+        elif msg.get("fastlane"):
+            lane = hub.create_lane(tenant)
+        rep = {"ok": True, "tenant_index": tenant.index,
+               "chip": tenant.chip.index, "chips": [tenant.chip.index],
+               "epoch": self.state.epoch, "created": created,
+               "resumed": resumed}
+        if lane is not None:
+            # The arena fds follow the reply once, as SCM_RIGHTS on a
+            # one-byte message; the paths stay in the reply.
+            lane[0]["fds"] = hasattr(socket, "send_fds")
+            rep["fastlane"] = lane[0]
+        self._send(rep)
+        if lane is not None and lane[0]["fds"]:
+            try:
+                with self.send_mu:
+                    socket.send_fds(self.request, [b"F"], lane[1])
+            except OSError:
+                pass
 
     def _journal_bind(self, t: Tenant, msg) -> None:
         """Journal a binding (creation, reconnect or resume): the grant's
@@ -1890,7 +2388,15 @@ class TenantSession(socketserver.BaseRequestHandler):
                     self._send({"ok": True})
                 elif kind == P.STATS:
                     tenant.chip.scheduler.quiesce(tenant.name)
+                    self.state.fastlane.wait_metered(tenant.name)
                     self._send(_stats_reply(self.state))
+                elif kind == P.FASTBIND:
+                    # A route: (program, argument ids, output ids) bound to
+                    # the integer a ring descriptor carries.
+                    self._send(self.state.fastlane.bind_route(
+                        tenant, str(msg["exe"]),
+                        [str(a) for a in msg["args"]],
+                        [str(o) for o in (msg.get("outs") or ())]))
                 elif kind in _DEFERRED:
                     self._send_err("UNIMPLEMENTED",
                                    deferred(f"{kind}", _DEFERRED[kind]))
@@ -1924,7 +2430,18 @@ class TenantSession(socketserver.BaseRequestHandler):
     def _put(self, sock, tenant: Tenant, msg) -> None:
         raw_parts = int(msg.get("raw_parts", 0) or 0)
         pool_buf = None
-        if raw_parts:
+        arena_off = msg.get("arena_off")
+        if arena_off is not None:
+            # The payload is in the lane's tx arena, never on the socket;
+            # copied out now, as the client reuses the arena after the ack.
+            lane = tenant.fastlane
+            tx = lane.tx_view() if lane is not None else None
+            want, off = int(msg["nbytes"]), int(arena_off)
+            if tx is None or off < 0 or off + want > len(tx):
+                raise P.ProtocolError(f"arena PUT [{off}, +{want}) has no "
+                                      "arena to come from")
+            buf = bytearray(tx[off:off + want])
+        elif raw_parts:
             want = int(msg["nbytes"])
             if want > raw_parts * P.CHUNK_BYTES:
                 raise P.ProtocolError(f"raw PUT {want} bytes in {raw_parts} "
@@ -2015,7 +2532,16 @@ class TenantSession(socketserver.BaseRequestHandler):
         nbytes = len(flat)
         hdr = {"ok": True, "shape": list(host.shape),
                "dtype": dtype_name(host.dtype), "nbytes": nbytes}
-        if msg.get("raw"):
+        lane = tenant.fastlane if msg.get("arena") else None
+        rx = lane.rx_view() if lane is not None else None
+        if rx is not None and nbytes <= len(rx):
+            # Into the lane's rx arena (the copy to the host is done), a
+            # header on the socket; a tensor larger than the arena goes
+            # by the framing below.
+            rx[:nbytes] = flat
+            hdr["arena_off"] = 0
+            self._send(hdr)
+        elif msg.get("raw"):
             hdr["raw_parts"] = P.raw_part_count(nbytes)
             with self.send_mu:
                 P.send_frames(sock, [P.frame_header(hdr)]
@@ -2038,9 +2564,6 @@ class TenantSession(socketserver.BaseRequestHandler):
         prog = t.executables.get(str(spec["exe"]))
         if prog is None:
             raise _ItemError("NOT_FOUND", str(spec["exe"]))
-        if spec.get("feeds"):
-            raise _ItemError("FEED_UNAVAILABLE", deferred(
-                "arena feeds", _DEFERRED[P.FASTBIND]))
         steps = int(spec.get("repeats", 1))
         carry = tuple(tuple(int(x) for x in pair)
                       for pair in spec.get("carry", ((0, 0),)))
@@ -2056,6 +2579,9 @@ class TenantSession(socketserver.BaseRequestHandler):
                         [str(x) for x in spec.get("outs", [])],
                         steps=steps, carry=carry,
                         free_ids=[str(f) for f in spec.get("free", ())])
+        if spec.get("feeds"):
+            item.feeds = self._parse_feeds(t, prog, spec["feeds"], n_args,
+                                          steps)
         if isinstance(trace, dict):
             # The client's stamp (VTPU_TRACE): its id threads through to
             # the span.
@@ -2067,6 +2593,47 @@ class TenantSession(socketserver.BaseRequestHandler):
             except (TypeError, ValueError):
                 pass
         return item
+
+    @staticmethod
+    def _parse_feeds(t: Tenant, prog: Program, feeds, n_args: int,
+                     steps: int) -> tuple:
+        """Arena feeds ([id, argpos, offset, nbytes, shape, dtype] each),
+        checked now against the tenant's tx arena and the program's input
+        at ``argpos``: a bad feed fails this request, not the dispatcher,
+        and a chain's later steps run on what the first was held to."""
+        lane = t.fastlane
+        tx = lane.tx_view() if lane is not None else None
+        if tx is None:
+            raise _ItemError("FEED_UNAVAILABLE", "feeds need a negotiated "
+                             "fastlane lane (tx arena)")
+        parsed = []
+        for f in feeds:
+            fid, ap, off, nb, shape, dt = f
+            ap, off, nb = int(ap), int(off), int(nb)
+            shape = tuple(int(x) for x in shape)
+            if not 0 <= ap < n_args:
+                raise _ItemError("BAD_FEED", f"feed argpos {ap} out of range")
+            if off < 0 or nb <= 0 or off + nb > len(tx):
+                raise _ItemError("BAD_FEED", f"feed [{off}, +{nb}) outside "
+                                 f"the {len(tx)}-byte tx arena")
+            try:
+                dtype = torch_dtype(str(dt))
+            except TypeError:
+                raise _ItemError("BAD_FEED", f"feed dtype {dt!r}") from None
+            if ap < len(prog.in_meta) and (shape, dtype) != prog.in_meta[ap]:
+                want = prog.in_meta[ap]
+                raise _ItemError("BAD_FEED", f"feed {dt}{list(shape)} at "
+                                 f"argument {ap}; the program takes "
+                                 f"{dtype_name(want[1])}{list(want[0])}")
+            if nb != math.prod(shape) * dtype.itemsize:
+                raise _ItemError("BAD_FEED", f"feed of {nb} bytes is not a "
+                                 f"{dt}{list(shape)}")
+            parsed.append((str(fid) if fid else None, ap, off, nb, shape,
+                           str(dt)))
+        if steps > 1 and len(parsed) not in (1, steps):
+            raise _ItemError("BAD_FEED", f"chained feeds want 1 or {steps} "
+                             f"entries, got {len(parsed)}")
+        return tuple(parsed)
 
     def _reserve_pending(self, n: int) -> None:
         with self.pending_cond:
@@ -2083,6 +2650,8 @@ class TenantSession(socketserver.BaseRequestHandler):
             return
         self._reserve_pending(1)
         t.chip.scheduler.submit(item)
+        # A socket execute while a lane exists: which path a tenant is on.
+        self.state.fastlane.note_fallback(t, 1)
 
     def _enqueue_batch(self, t: Tenant, msg) -> None:
         specs = msg.get("items")
@@ -2116,6 +2685,7 @@ class TenantSession(socketserver.BaseRequestHandler):
                 self.pending_cond.notify_all()
         if items:
             t.chip.scheduler.submit_many(items)
+            self.state.fastlane.note_fallback(t, len(items))
         elif done:
             self._drain()
             try:
@@ -2136,6 +2706,20 @@ class TenantSession(socketserver.BaseRequestHandler):
         return {"ok": False, "code": "INTERNAL",
                 "error": f"{type(exc).__name__}: {exc}"}
 
+    def _attach_lease(self, t: Tenant, msg: Dict[str, Any]) -> None:
+        """The tenant's lease on an execute reply: its µs and time to live,
+        or once a revoke after a suspend, resize or drain (a new grant
+        does not clear it, so the next reply carries it).  An unlocked
+        read: the client's copy paces its sends and enforces nothing."""
+        if self.state.rate_lease_us <= 0:
+            return
+        if t.lease_revoked:
+            t.lease_revoked = False
+            msg["lease"] = {"us": 0, "ttl_s": 0.0, "revoke": True}
+        elif t.lease_us > 0:
+            msg["lease"] = {"us": int(t.lease_us), "ttl_s": round(
+                max(t.lease_exp - time.monotonic(), 0.0), 3)}
+
     def complete_execute(self, item: WorkItem, metas, exc,
                          actual_us: float) -> None:
         """Called by the dispatcher in dispatch order: the reply, or the
@@ -2144,8 +2728,12 @@ class TenantSession(socketserver.BaseRequestHandler):
         try:
             if item.batch is not None:
                 if item.batch.fill(item.batch_idx, res):
-                    self._send({"ok": True, "results": item.batch.results})
+                    msg = {"ok": True, "results": item.batch.results}
+                    self._attach_lease(item.tenant, msg)
+                    self._send(msg)
             else:
+                if res.get("ok"):
+                    self._attach_lease(item.tenant, res)
                 self._send(res)
         except OSError:
             pass  # the client went away; teardown follows
@@ -2199,7 +2787,12 @@ def collect_stats(state: RuntimeState) -> Dict[str, Dict[str, Any]]:
             "cost_ema_us": {k: round(float(v), 1)
                             for k, v in t.cost_ema.items()},
             "busy_us": int(st.busy_us),
+            "lease_us": int(t.lease_us),
+            "lease_grants": t.lease_grants,
         }
+        fl = state.fastlane.tenant_stats(name)
+        if fl is not None:
+            out[name]["fastlane"] = fl
     return out
 
 
@@ -2244,10 +2837,17 @@ class AdminSession(socketserver.BaseRequestHandler):
                     name = str(msg["tenant"])
                     with self.state.mu:
                         known = name in self.state.tenants
+                        t_obj = self.state.tenants.get(name)
                         if kind == P.SUSPEND:
                             self.state.suspended.add(name)
                         else:
                             self.state.suspended.discard(name)
+                    if kind == P.SUSPEND and t_obj is not None:
+                        # A frozen tenant parks no pre-debited time; its
+                        # lane's drainer parks the gate.
+                        with t_obj.chip.scheduler.mu:
+                            t_obj.lease_release()
+                            t_obj.lease_revoked = True
                     with self.state.chips_mu:
                         chips = list(self.state.chips.values())
                     for chip in chips:
@@ -2281,6 +2881,9 @@ class AdminSession(socketserver.BaseRequestHandler):
                     rec = resize_tenant(
                         t_obj, int(hbm) if hbm is not None else None,
                         int(core) if core is not None else None)
+                    # The lane's gate parks for a pass, so its client gives
+                    # back the lease it holds at the old share.
+                    self.state.fastlane.repark(name)
                     # Journaled before the ack: once the operator sees ok
                     # the new grant survives a crash.
                     if self.state.journal is not None:
@@ -2361,11 +2964,8 @@ class _Server(socketserver.ThreadingUnixStreamServer):
 
 def refuse_deferred_env(env=os.environ) -> None:
     """Raise for an environment that asks the broker for a module not
-    ported yet: the fastlane's lanes (``VTPU_FASTLANE=1``) or the SLO
-    plane (``VTPU_SLO=1``; ``vtpu`` runs it unless ``VTPU_SLO=0``)."""
-    if env.get("VTPU_FASTLANE", "0") not in ("", "0"):
-        raise RuntimeError(deferred("VTPU_FASTLANE (the fastlane's lanes)",
-                                    "6(c), the fastlane"))
+    ported yet: the SLO plane (``VTPU_SLO=1``; ``vtpu`` runs it unless
+    ``VTPU_SLO=0``)."""
     if env.get("VTPU_SLO", "0") not in ("", "0"):
         raise RuntimeError(deferred("VTPU_SLO (the SLO plane)",
                                     "6(d), the SLO plane"))

@@ -39,9 +39,11 @@ nothing recorded which.  With ``VTPU_TRACE=1``:
     directory (``vtpu``'s sits beside libtpu's lockfile);
     ``VTPU_LEASE_SIDECAR`` overrides it.
 
-``vtpu``'s hot-path half, the native per-process event ring
-(``shim/core.py`` TraceRing), comes with the fastlane (ROADMAP Queue 1
-item 6(c)).
+``vtpu``'s hot-path half is the native per-process event ring
+(``shim/core.py`` TraceRing): under ``VTPU_TRACE`` the region library
+writes a process's token-bucket waits and refused memory admits into
+``<region>.trace.<pid>``, and ``vtpu-smi trace --dump`` merges them into
+the Chrome trace beside the spans.
 """
 
 from __future__ import annotations

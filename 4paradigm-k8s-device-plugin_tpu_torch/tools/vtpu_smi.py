@@ -18,7 +18,12 @@ pod's region.  It never takes a slot in a region.
                                              # --drain, --handover, --shutdown
 
 ``trace`` reads the broker's flight recorder over its main socket
-(bind-free, like STATS); the admin verbs go to ``SOCK.admin``.  What
+(bind-free, like STATS); with ``--dump`` it merges the native event rings
+(``<region>.trace.<pid>``, ``collect_ring_events``) of the regions given
+by ``--region``/``--scan`` into the Chrome trace.  ``--broker-stats``
+prints the STATS reply: a row per tenant, with its fastlane block (ring
+and socket steps, depth, gate, arenas, metered device time) when it has a
+lane, and the lanes' rollup.  The admin verbs go to ``SOCK.admin``.  What
 waits for its module is refused with a message that names its ROADMAP
 Queue 1 item, never silently absent: ``top`` and ``cluster``, and the
 admin flags ``--migrate``, ``--device``, ``--migrate-to``, ``--chips`` and
@@ -158,7 +163,33 @@ def request(path: str, msg: dict, timeout: float = 10.0) -> dict:
         s.close()
 
 
-def cmd_trace(ns) -> int:
+def collect_ring_events(paths: List[str]) -> List[dict]:
+    """The native ring events (rate waits, refused memory admits) of the
+    ``<region>.trace.<pid>`` files beside the given regions, in time
+    order, each with its ring's pid and path."""
+    from ..shim.core import TraceRing
+    out: List[dict] = []
+    for rp in paths:
+        for ring_path in sorted(glob.glob(rp + ".trace.*")):
+            try:
+                pid = int(ring_path.rsplit(".", 1)[-1])
+            except ValueError:
+                pid = 0
+            try:
+                with TraceRing(ring_path) as ring:
+                    evs, _ = ring.read(0, 4096)
+            except OSError as e:
+                print(f"skipping ring {ring_path}: {e}", file=sys.stderr)
+                continue
+            for ev in evs:
+                ev["pid"] = pid
+                ev["ring"] = ring_path
+            out.extend(evs)
+    out.sort(key=lambda e: e.get("t_ns", 0))
+    return out
+
+
+def cmd_trace(ns, paths: List[str]) -> int:
     """``vtpu-smi trace [TENANT]``: the flight recorder's spans and
     slow-op captures, as text, ``--json``, or ``--dump FILE`` (Chrome
     trace, for chrome://tracing or Perfetto)."""
@@ -178,7 +209,7 @@ def cmd_trace(ns) -> int:
         return 1
     tenants = resp.get("tenants", {})
     if ns.dump:
-        doc = tracing.chrome_trace(tenants)
+        doc = tracing.chrome_trace(tenants, collect_ring_events(paths))
         with open(ns.dump, "w") as f:
             json.dump(doc, f)
         print(f"wrote {len(doc['traceEvents'])} trace events to {ns.dump} "
@@ -401,7 +432,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if ns.cmd == "metricsd":
         return cmd_metricsd(ns)
     if ns.cmd == "trace":
-        return cmd_trace(ns)
+        return cmd_trace(ns, ns.region or find_regions(ns.scan))
     if ns.cmd == "leases":
         return cmd_leases(ns)
     admin = (ns.suspend or ns.resume or ns.resize or ns.broker_stats

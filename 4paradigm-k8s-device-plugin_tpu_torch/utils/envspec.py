@@ -190,10 +190,11 @@ ENV_FLAGS = {
     # The in-cluster API client (k8s/client.py).
     "KUBERNETES_SERVICE_HOST": "k8s",
     "KUBERNETES_SERVICE_PORT": "k8s",
-    # The broker (runtime/): its wire, its scheduler, its journal
-    # (journal.py, replication.py's fence), its timers and its client;
-    # VTPU_FASTLANE and VTPU_SLO are read to be refused until their
-    # modules are ported (ROADMAP Queue 1 items 6(c), 6(d)).
+    # The broker (runtime/): its wire, its scheduler and rate leases, its
+    # journal (journal.py, replication.py's fence), its timers, its
+    # client and the fastlane (fastlane.py: VTPU_FASTLANE asks a client's
+    # lane and, at 0, turns the broker's off); VTPU_SLO is read to be
+    # refused until the SLO plane is ported (ROADMAP Queue 1 item 6(d)).
     "VTPU_PUT_CHUNK_BYTES": "broker",
     "VTPU_RECV_POOL_MB": "broker",
     "VTPU_MAX_QUEUE_US": "broker",
@@ -207,6 +208,11 @@ ENV_FLAGS = {
     "VTPU_REPL_FENCE": "broker",
     "VTPU_TIMER_COALESCE_MS": "broker",
     "VTPU_FASTLANE": "broker",
+    "VTPU_FASTLANE_RING": "broker",
+    "VTPU_FASTLANE_ARENA_MB": "broker",
+    "VTPU_FASTLANE_SPIN_US": "broker",
+    "VTPU_FASTLANE_BATCH": "broker",
+    "VTPU_ARENA_FEED": "broker",
     "VTPU_SLO": "broker",
     "VTPU_EXEC_BATCH": "broker",
     "VTPU_TENANT": "broker",

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs thirteen phases, each of which asserts; any failure exits
+then runs fourteen phases, each of which asserts; any failure exits
 non-zero and prints no result line.
 
 1. Device: the card's name and power limit, the versions (msgpack and
@@ -115,22 +115,23 @@ non-zero and prints no result line.
    route; the logits of the first step within ``LOGITS_REL_L2`` of
    in-process ``entry.serve`` with the same weights, and the tokens after
    steps 4 and 8 equal on at least 99.9% of positions.  12b: Llama-3-8B
-   at full width, b=2, s=512, from the broker's init program under a
-   20 GiB cap given in HELLO: 32 launches a step, a second init refused
-   with RESOURCE_EXHAUSTED and the ledger unmoved, 0 after the tenant
-   exits; its rate beside phase 3's.  12c: the bench config at 50%
+   at full width, depth cut to 4 layers (14a serves all 32 through the
+   broker), b=2, s=512, from the broker's init program under a 6 GiB cap
+   given in HELLO: 4 launches a step, a second init refused with
+   RESOURCE_EXHAUSTED and the ledger unmoved, 0 after the tenant exits.  12c: the bench config at 50%
    shares given in HELLO, one tenant alone and two at once for 8 s each:
    each of the pair books 0.40-0.60 of its window, and the tenant alone
    (a sole demander, ungated in the work-conserving region) runs faster
-   and books more of its window than each of the pair.  Phase 12 alone: ``python3 -c "import chip_smoke, tempfile,
-   torch; chip_smoke.phase_device(torch); chip_smoke.phase_broker(torch,
-   tempfile.mkdtemp(), {'serve': float('nan')})"``.
+   and books more of its window than each of the pair.  Phase 12 alone:
+   ``python3 -c "import chip_smoke, tempfile, torch;
+   chip_smoke.phase_device(torch); chip_smoke.phase_broker(torch,
+   tempfile.mkdtemp())"``.
 13. The broker's durability half: brokers as processes
    (``python -m vtpu_torch.runtime.server --device cuda``) with a journal
    (on /dev/shm when it has room for the weights twice, else the temp
    directory; the script prints which) and ``VTPU_TRACE=1``, tenants as
    children with ``CUDA_VISIBLE_DEVICES`` empty.  13a: Llama-3-8B at full
-   width, depth cut to 4 layers (3.85 GB of bf16 weights drawn on the card
+   width, depth cut to 2 layers (2.97 GB of bf16 weights drawn on the card
    from a seed, PUT by the tenant, so journaled), b=2, s=512, under an
    8 GiB cap and core 100 given in HELLO; after 8 steps (two chains of 4)
    the broker is killed with SIGKILL while the third chain is in flight,
@@ -157,10 +158,42 @@ non-zero and prints no result line.
    torch; chip_smoke.phase_device(torch); chip_smoke.phase_durability(
    torch, tempfile.mkdtemp(), {'serve': float('nan')})"``.
 
+14. The fastlane (``vtpu_torch.runtime.fastlane``): tenants as children
+   with ``CUDA_VISIBLE_DEVICES`` empty and ``VTPU_FASTLANE=1``, brokers in
+   this process but 14f's.  14a: Llama-3-8B at full width from the
+   broker's init program (20 GiB, core 100 given in HELLO), b=2, s=512, 16
+   steps of one unchained execute each over the lane, then a second
+   connection of the tenant closes its lane and 16 more go over the socket
+   on the same weights: at least 15 ring steps (the first primes over the
+   socket), the tokens of both equal at every position, 1,024 sm90
+   launches and no WMMA, the ledger 0 after exit.  14b: the bench config
+   at b=4, s=512, weights drawn from a seed and PUT, 8 steps over the lane
+   and 8 over the socket: logits (a forward over the ring) within
+   ``LOGITS_REL_L2`` of in-process ``entry.serve`` and tokens equal on at
+   least 99.9% of positions.  14c: 2,000 synchronous executes of a
+   256-float program over each path, at least 90% of the lane's on the
+   ring (p50 and p99 µs printed).  14d: 32 MiB arrays PUT and fetched over
+   the socket and through the arenas, with the journal off and on (on
+   /dev/shm): bit-equal, the ledger equal to the bytes PUT (GB/s
+   printed).  14e: two bench lane tenants at 50% in a broker with
+   ``--work-conserving 0`` for 6 s, then one alone at 100%: each of the
+   pair books 0.40-0.60 of its window, the one alone at least 0.85, both
+   with lease grants.  14f (F1): each index op of the broker's list run
+   raw on the card alone, in a process of its own (which assert:
+   printed); then, in a broker process, a bench co-tenant serving in
+   chains alone and beside a hostile tenant that sends every such op out
+   of range over the socket and over the lane: the broker's pid holds, the
+   hostile outputs equal the CPU reference of the clamp-and-drop rule, the
+   co-tenant's tokens equal its solo run.  Phase 14 alone: ``python3 -c
+   "import chip_smoke, tempfile, torch; chip_smoke.phase_device(torch);
+   chip_smoke.phase_fastlane(torch, tempfile.mkdtemp(), {'serve':
+   float('nan')})"``.
+
 The line before the last is one JSON object with each kernel's numbers
 (``launches`` from phase 3, ``brokered_launches`` from phase 12,
-``phase13_launches`` from the phase 13 brokers that exit cleanly);
-the last is ``{"ok": true, "device": {...}}``.
+``phase13_launches`` from the phase 13 brokers that exit cleanly,
+``phase14_launches`` from phase 14's brokers); the last is ``{"ok": true,
+"device": {...}}``.
 """
 
 import dataclasses
@@ -2375,6 +2408,8 @@ BROKER_CHAIN = 4
 TOKEN_AGREEMENT = 0.999    # share of token positions equal to in-process
 FULL_SHAPE = (2, 512)      # phase 3's batch and sequence
 FULL_STEPS = 16
+B12_LAYERS = 4             # 12b: Llama-3-8B at full width, depth cut to 4
+B12_CAP = 6 * 2**30        # 12b's cap: one init of 3.85 GB fits, two do not
 FULL_CAP = 20 * 2**30      # phase 3's cap, given in HELLO
 SHARE_S = 8.0              # each 12c tenant's timed window
 SHARE_CORE = 50
@@ -2456,8 +2491,9 @@ def brokered_child(torch, torch_maps, go, mode, sock, out_dir):
         c.close()
     elif mode == "full":
         released()
-        cfg = tr.TransformerConfig.llama3_8b()
-        c = RuntimeClient(sock, tenant="full", hbm_limit=FULL_CAP,
+        cfg = dataclasses.replace(tr.TransformerConfig.llama3_8b(),
+                                  n_layers=B12_LAYERS)
+        c = RuntimeClient(sock, tenant="full", hbm_limit=B12_CAP,
                           core_limit=100)
         t0 = time.monotonic()
         out = entry.serve_brokered(
@@ -2530,7 +2566,7 @@ def broker_ledger(state):
                for i in range(state.chips[0].region.ndevices))
 
 
-def phase_broker(torch, tmp, direct):
+def phase_broker(torch, tmp):
     import threading
 
     from vtpu_torch import entry
@@ -2620,12 +2656,13 @@ def phase_broker(torch, tmp, direct):
         full = run_released([env], "brokered", tmp, "b_full",
                             args=[("full", sock, tmp)])[0]
         launches["full"] = dict(fa.flash_attention.route_launches)
-        llama = tr.TransformerConfig.llama3_8b()
+        llama = dataclasses.replace(tr.TransformerConfig.llama3_8b(),
+                                    n_layers=B12_LAYERS)
         want = FULL_STEPS * llama.n_layers
-        say(f"12b llama3_8b b=2 s=512 through the broker: {full['wall_s']:.1f}"
-            f" s with init and compile; {full['steps_per_s']:.3f} steps/s "
-            f"in chains of {BROKER_CHAIN} after the first (phase 3 in "
-            f"process: {direct['serve']:.3f}); launches "
+        say(f"12b llama3_8b at depth {B12_LAYERS}, b=2 s=512 through the "
+            f"broker: {full['wall_s']:.1f} s with init and compile; "
+            f"{full['steps_per_s']:.3f} steps/s in chains of {BROKER_CHAIN} "
+            f"after the first; launches "
             f"{json.dumps(launches['full'])}; ledger "
             f"{full['ledger_before']} B; second init: {full['second_init']}")
         check(fa.flash_attention.launches == want
@@ -2685,7 +2722,7 @@ def phase_broker(torch, tmp, direct):
 # -- phase 13: the broker's durability half ----------------------------------
 
 P13_SEED = 13
-P13_LAYERS = 4             # Llama-3-8B at full width, depth cut to 4
+P13_LAYERS = 2             # Llama-3-8B at full width, depth cut to 2
 P13_STEPS = 16             # four chains of P13_CHAIN
 P13_CHAIN = 4
 P13_KILL_AT = 8            # steps fetched when the broker is killed
@@ -3188,6 +3225,722 @@ def phase_durability(torch, tmp, direct, s13=None):
     return out
 
 
+# -- phase 14: the fastlane ----------------------------------------------------
+
+P14_SEED = 14
+P14_STEPS = 16             # 14a: unchained steps over each path
+P14_RING_MIN = 15          # 14a: of 16 (the first primes over the socket)
+P14_PAR_STEPS = 8          # 14b
+P14_RTT_N = 2000           # 14c: synchronous executes over each path
+P14_RTT_FLOATS = 256
+P14_RTT_RING_SHARE = 0.9
+P14_ARENA_BYTES = 32 << 20  # 14d: each array (the arena holds 64 MiB)
+P14_ARENA_N = 4            # 14d: arrays PUT and fetched in each combination
+P14_SHARE_S = 6.0          # 14e: each window
+P14_SHARE_CORE = 50
+P14_SHARE_BAND = (0.40, 0.60)
+P14_LONE_MIN = 0.85
+P14_CO_CHAIN = 4           # 14f: the co-tenant's chains
+P14_CO_STEPS = 8
+# 14f: every index op on the broker's list, sent with out-of-range operands
+# (the raw op is also run on the card alone, in a process of its own, to
+# see which assert there).
+P14_PROBES = ("gather", "index_select", "index", "embedding",
+              "take_along_dim", "one_hot", "scatter", "scatter_add",
+              "index_put", "index_put_accumulate", "bernoulli",
+              "repeat_interleave")
+
+
+def hostile_cases(torch):
+    """(name, program, arguments, the CPU reference of the clamp-and-drop
+    rule in numpy) for each index op on the broker's list, its operands
+    out of range; the reference is None for a program COMPILE refuses (a
+    non-empty gather from an empty dim has nothing to clamp to)."""
+    F = torch.nn.functional
+    x = np.arange(20, dtype=np.float32).reshape(5, 4)
+    n = x.shape[0]
+    i = np.array([-7, -1, 0, 3, 4, 5, 9, 1 << 40], np.int64)
+    clamp = np.clip(i, 0, n - 1)
+    wrap = np.where((i < 0) & (i >= -n), i + n, i)
+    g = np.array([[9, -2, 1, 0], [4, 5, -9, 2]], np.int64)
+    cols = np.arange(4)
+    put_i = np.array([1, 9, -1, -9, 3], np.int64)
+    put_w = np.where((put_i < 0) & (put_i >= -n), put_i + n, put_i)
+    put_v = np.stack([np.full(4, -1.0 - k, np.float32) for k in range(5)])
+    ref_set = x.copy()
+    ref_add = x.copy()
+    for k, r in enumerate(put_w):
+        if 0 <= r < n:
+            ref_set[r] = put_v[k]
+            ref_add[r] += put_v[k]
+    sc_i = np.array([[0, 9, -1, 4], [2, -3, 7, 1]], np.int64)
+    sc_v = -np.ones((2, 4), np.float32)
+    ref_sc, ref_sca = x.copy(), x.copy()
+    for a in range(2):
+        for b in range(4):
+            r = sc_i[a, b]
+            if 0 <= r < n:
+                ref_sc[r, b] = sc_v[a, b]
+                ref_sca[r, b] += sc_v[a, b]
+    oh = np.zeros((len(i), 5), np.int64)
+    for k, r in enumerate(i):
+        if 0 <= r < 5:
+            oh[k, r] = 1
+    p = np.array([-3.0, 0.0, 1.0, 7.0, np.nan], np.float32)
+    # A 2-D mask covers dims 0-1: the integer index after it reads dim 2
+    # (size 3), so 4 (which dim 1 would hold) and -9 are dropped.
+    x3 = np.arange(36, dtype=np.float32).reshape(2, 6, 3)
+    mask = np.zeros((2, 6), bool)
+    mask[0, 1] = mask[1, 2] = mask[1, 5] = mask[0, 4] = True
+    m_i = np.array([1, 4, -1, -9], np.int64)
+    ref_m = x3.copy()
+    for (r, c), k in zip(np.argwhere(mask), m_i):
+        k = k + 3 if -3 <= k < 0 else k
+        if 0 <= k < 3:
+            ref_m[r, c, k] = -1.0
+    return [
+        ("gather", lambda a, b: torch.gather(a, 0, b), [x, g],
+         x[np.clip(g, 0, n - 1), cols]),
+        ("index_select", lambda a, b: torch.index_select(a, 0, b), [x, i],
+         x[clamp]),
+        ("index", lambda a, b: a[b], [x, i], x[np.clip(wrap, 0, n - 1)]),
+        ("embedding", lambda w, b: F.embedding(b, w), [x, i], x[clamp]),
+        ("take_along_dim", lambda a, b: torch.take_along_dim(a, b, 1),
+         [x, np.array([[9], [0], [-3], [2], [1]], np.int64)],
+         x[np.arange(n), np.clip([9, 0, -3, 2, 1], 0, 3)][:, None]),
+        ("one_hot", lambda b: F.one_hot(b, 5), [i], oh),
+        ("scatter", lambda a, b, v: torch.scatter(a, 0, b, v),
+         [x, sc_i, sc_v], ref_sc),
+        ("scatter_add", lambda a, b, v: torch.scatter_add(a, 0, b, v),
+         [x, sc_i, sc_v], ref_sca),
+        ("index_put", lambda a, b, v: torch.index_put(a, (b,), v),
+         [x, put_i, put_v], ref_set),
+        ("index_put_accumulate",
+         lambda a, b, v: torch.index_put(a, (b,), v, True),
+         [x, put_i, put_v], ref_add),
+        ("bernoulli", lambda q: torch.bernoulli(q), [p],
+         np.array([0.0, 0.0, 1.0, 1.0, 0.0], np.float32)),
+        ("index_put_mask", lambda a, m, b, v: torch.index_put(a, (m, b), v),
+         [x3, mask, m_i, np.array([-1.0], np.float32)], ref_m),
+        ("gather_empty_dim", lambda a, b: torch.index_select(a, 0, b),
+         [np.zeros((0, 4), np.float32), i], None),
+    ]
+
+
+def probe_child(torch, op):
+    """One raw index op on the card with an out-of-range operand, in a
+    process of its own: "ok" (it ran), "assert" (a device-side assert,
+    which leaves the context unusable) or the host's error."""
+    dev = "cuda"
+    x = torch.arange(20.0, device=dev).reshape(5, 4)
+    bad = torch.tensor([0, 9, -7], device=dev)
+    runs = {
+        "gather": lambda: torch.gather(x, 0, bad[:, None].expand(3, 4)),
+        "index_select": lambda: torch.index_select(x, 0, bad),
+        "index": lambda: x[bad],
+        "embedding": lambda: torch.nn.functional.embedding(bad, x),
+        "take_along_dim": lambda: torch.take_along_dim(x, bad[:, None], 0),
+        "one_hot": lambda: torch.nn.functional.one_hot(bad.abs(), 5),
+        "scatter": lambda: torch.scatter(x, 0, bad[:, None].expand(3, 4),
+                                         -x[:3]),
+        "scatter_add": lambda: torch.scatter_add(
+            x, 0, bad[:, None].expand(3, 4), -x[:3]),
+        "index_put": lambda: torch.index_put(x, (bad,), -x[:3]),
+        "index_put_accumulate": lambda: torch.index_put(x, (bad,), -x[:3],
+                                                        True),
+        "bernoulli": lambda: torch.bernoulli(
+            torch.tensor([-3.0, 0.5, 7.0], device=dev)),
+        "repeat_interleave": lambda: torch.repeat_interleave(
+            x, torch.tensor([5, 5, 5, 5, 5], device=dev), dim=0,
+            output_size=6),
+    }
+    try:
+        runs[op]()
+        torch.cuda.synchronize()
+        return {"op": op, "raw": "ok"}
+    except RuntimeError as e:
+        return {"op": op, "raw": "assert" if "device-side assert" in str(e)
+                else f"error: {str(e).splitlines()[0][:120]}"}
+
+
+def client_steps(torch, c, exe, param_ids, start, steps, chain=1, depth=2):
+    """``steps`` greedy steps of ``exe``, a step program an earlier
+    ``serve_brokered`` of this client compiled, on the weights
+    ``param_ids`` it left in the broker, from the tokens ``start``: sent
+    through the client as ``serve_brokered`` sends them (chains of
+    ``chain``, each reply read before the next is sent, ``depth`` in
+    flight, the first chain untimed).  Returns the final tokens, those of
+    the chain before, the steps per second after the first chain and each
+    fetch's monotonic time."""
+    import collections
+
+    c.put(torch.as_tensor(start, dtype=torch.int32), "tok0")
+    ids = ["tok0", "tok1"]
+    chains = collections.deque()
+    out = {"tokens": None, "prev_tokens": None, "times": []}
+    sent = 0
+
+    def send():
+        nonlocal sent
+        k = min(chain, steps - sent)
+        c.execute_send_ids(exe.id, [ids[0]] + list(param_ids), [ids[1]],
+                           repeats=k, carry=((0, 0),))
+        c.execute_recv()
+        chains.append((k, ids[1]))
+        ids.reverse()
+        sent += k
+
+    def fetch():
+        k, oid = chains.popleft()
+        out["prev_tokens"], out["tokens"] = out["tokens"], c.get(oid)
+        out["times"].append(time.monotonic())
+        return k
+
+    send()
+    fetch()
+    timed, t0 = 0, time.monotonic()
+    while sent < steps or chains:
+        if sent < steps and len(chains) < depth:
+            send()
+        else:
+            timed += fetch()
+    out["steps_per_s"] = timed / (time.monotonic() - t0)
+    return out
+
+
+def step_gaps_ms(times):
+    """The median and the largest gap, in ms, between successive
+    fetches (one step each when unchained)."""
+    gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:])]
+    return (statistics.median(gaps), max(gaps)) if gaps else (0.0, 0.0)
+
+
+def p14_child(torch, go, mode, sock, out_dir):
+    """Phase 14, one tenant that never opens the card
+    (CUDA_VISIBLE_DEVICES empty, VTPU_FASTLANE=1): ``full``, ``parity``,
+    ``rtt``, ``arena``, ``share``, ``co`` or ``hostile`` (the module
+    docstring's 14a-14f)."""
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.runtime.client import RuntimeClient, RuntimeError_
+
+    check(os.environ.get("CUDA_VISIBLE_DEVICES") == "",
+          "the tenant was started with a card visible")
+    res = {"pid": os.getpid()}
+
+    def released():
+        print("READY", flush=True)
+        while not os.path.exists(go):
+            time.sleep(0.005)
+
+    def lane_of(c, name):
+        return c.stats()[name].get("fastlane") or {}
+
+    if mode == "full":
+        cfg = tr.TransformerConfig.llama3_8b()
+        c = RuntimeClient(sock, tenant="lane-full", hbm_limit=FULL_CAP,
+                          core_limit=100)
+        check(c._lane is not None, "14a: no lane negotiated")
+        released()
+        t0 = time.monotonic()
+        a = entry.serve_brokered(c, cfg, *FULL_SHAPE, steps=P14_STEPS,
+                                 init="program", seed=P14_SEED, chain=1,
+                                 depth=2)
+        fl = lane_of(c, "lane-full")
+        # A second connection of the tenant closes the lane: the same
+        # client, weights and program go on over the socket.
+        c2 = RuntimeClient(sock, tenant="lane-full", fastlane=False)
+        b = client_steps(torch, c, a["exe"], a["param_ids"],
+                         np.zeros(FULL_SHAPE, np.int32), P14_STEPS)
+        fl2 = lane_of(c, "lane-full")
+        res.update(
+            wall_s=time.monotonic() - t0, lane_rate=a["steps_per_s"],
+            sock_rate=b["steps_per_s"], ring=fl.get("ring_steps", 0),
+            lane_gaps=step_gaps_ms([t for _, t in a["chain_times"]]),
+            sock_gaps=step_gaps_ms(b["times"]),
+            fallback=fl.get("fallback_steps", 0),
+            ring_after=fl2.get("ring_steps", 0), gate_after=fl2.get("gate"),
+            same=int((a["tokens"] == b["tokens"]).sum())
+            + int((a["prev_tokens"] == b["prev_tokens"]).sum()),
+            total=2 * a["tokens"].numel(),
+            in_range=bool(int(a["tokens"].min()) >= 0
+                          and int(a["tokens"].max()) < cfg.vocab),
+            device_us=fl2.get("device_us", 0), billed_us=fl2.get(
+                "billed_us", 0), setup=a["setup_s"])
+        c2.close()
+        c.close()
+    elif mode == "parity":
+        released()
+        cfg = tr.TransformerConfig.bench()
+        c = RuntimeClient(sock, tenant="lane-parity")
+        check(c._lane is not None, "14b: no lane negotiated")
+        prompt = np.random.default_rng(P14_SEED).integers(
+            0, cfg.vocab, BROKER_SHAPE, dtype=np.int32)
+        weights = torch.load(os.path.join(out_dir, "p14_weights.pt"),
+                             weights_only=True)
+        a = entry.serve_brokered(c, cfg, *BROKER_SHAPE, steps=P14_PAR_STEPS,
+                                 weights=weights, chain=1, depth=2,
+                                 prompt=prompt)
+        c.put(torch.from_numpy(prompt), "prompt")
+        flash = dataclasses.replace(cfg, use_flash=True)
+        meta = [torch.empty(BROKER_SHAPE, dtype=torch.int32, device="meta")]
+        meta += [torch.empty(shape, dtype=dtype, device="meta")
+                 for _, shape, dtype in tr.param_shapes(flash)]
+        exe = c.compile(tr.functional_forward(flash), meta)
+        for _ in range(2):  # the first run primes over the socket
+            c.execute_send_ids(exe.id, ["prompt"] + a["param_ids"],
+                               ["logits"])
+            c.execute_recv()
+        fl = lane_of(c, "lane-parity")
+        logits = c.get("logits")
+        c2 = RuntimeClient(sock, tenant="lane-parity", fastlane=False)
+        b = client_steps(torch, c, a["exe"], a["param_ids"], prompt,
+                         P14_PAR_STEPS)
+        np.savez(os.path.join(out_dir, "p14_parity.npz"),
+                 lane=a["tokens"].numpy(), sock=b["tokens"].numpy(),
+                 logits=logits.float().numpy())
+        res.update(lane_rate=a["steps_per_s"], sock_rate=b["steps_per_s"],
+                   ring=fl.get("ring_steps", 0),
+                   lane_gaps=step_gaps_ms([t for _, t in a["chain_times"]]),
+                   sock_gaps=step_gaps_ms(b["times"]))
+        c2.close()
+        c.close()
+    elif mode == "rtt":
+        released()
+        x = torch.ones(P14_RTT_FLOATS)
+        for lane in (True, False):
+            name = f"rtt-{'lane' if lane else 'sock'}"
+            c = RuntimeClient(sock, tenant=name, fastlane=lane)
+            c.put(x, "x0")
+            exe = c.compile(lambda v: v * 2.0 + 1.0, [x])
+            for _ in range(3):
+                c.execute_send_ids(exe.id, ["x0"], ["y0"])
+                c.recv_reply()
+            lat = []
+            for _ in range(P14_RTT_N):
+                t0 = time.perf_counter()
+                c.execute_send_ids(exe.id, ["x0"], ["y0"])
+                c.recv_reply()
+                lat.append((time.perf_counter() - t0) * 1e6)
+            lat.sort()
+            ok = bool(torch.equal(c.get("y0"), x * 2.0 + 1.0))
+            fl = lane_of(c, name)
+            res[name] = {"p50_us": lat[len(lat) // 2],
+                         "p99_us": lat[int(len(lat) * 0.99)],
+                         "ring": fl.get("ring_steps", 0), "ok": ok}
+            c.close()
+    elif mode == "arena":
+        released()
+        rng = np.random.default_rng(P14_SEED)
+        data = [torch.from_numpy(rng.standard_normal(
+            P14_ARENA_BYTES // 4).astype(np.float32))
+            for _ in range(P14_ARENA_N)]
+        total = P14_ARENA_N * P14_ARENA_BYTES
+        for jname, path in (("off", sock), ("on", out_dir)):
+            for lane in (False, True):
+                name = f"arena-{jname}-{'arena' if lane else 'sock'}"
+                c = RuntimeClient(path, tenant=name, fastlane=lane)
+                check(lane == (c._lane is not None),
+                      f"{name}: lane {c._lane is not None}")
+                t0 = time.perf_counter()
+                for k, d in enumerate(data):
+                    c.put(d, f"a{k}")
+                put_s = time.perf_counter() - t0
+                used = c.stats()[name]["used_bytes"]
+                t0 = time.perf_counter()
+                got = [c.get(f"a{k}") for k in range(P14_ARENA_N)]
+                get_s = time.perf_counter() - t0
+                res[name] = {
+                    "put_gbs": total / put_s / 1e9,
+                    "get_gbs": total / get_s / 1e9,
+                    "equal": all(torch.equal(g, d)
+                                 for g, d in zip(got, data)),
+                    "ledger": used, "want": total}
+                c.close()
+    elif mode == "share":
+        core = int(out_dir)
+        c = RuntimeClient(sock, tenant=f"share-{os.getpid()}",
+                          core_limit=core)
+        check(c._lane is not None, "14e: no lane negotiated")
+        out = entry.serve_brokered(
+            c, "bench", *BROKER_SHAPE, init="program", seed=P14_SEED,
+            chain=1, depth=2, seconds=P14_SHARE_S, on_ready=released)
+        fl = lane_of(c, c.tenant)
+        res.update(steps_per_s=out["steps_per_s"], booked_us=out["booked_us"],
+                   window_s=out["window_s"], core=out["stats"][
+                       "core_limit_pct"], grants=c._lane.lease_grants
+                   if c._lane is not None else 0,
+                   ring=fl.get("ring_steps", 0),
+                   fallback=fl.get("fallback_steps", 0))
+        c.close()
+    elif mode == "co":
+        # Alone first, released by ``go``; then, released by ``go``.2,
+        # again on the same weights and program beside the hostile one.
+        c = RuntimeClient(sock, tenant="co", fastlane=False)
+        solo = entry.serve_brokered(c, "bench", *BROKER_SHAPE,
+                                    init="program", seed=P14_SEED,
+                                    chain=P14_CO_CHAIN, depth=2,
+                                    steps=P14_CO_STEPS, on_ready=released)
+        print("SOLO", flush=True)
+        while not os.path.exists(go + ".2"):
+            time.sleep(0.005)
+        # Served again and again from the same prompt until the hostile
+        # tenant is done, each time held to the solo run's tokens.
+        reps, same = 0, 0
+        while reps == 0 or not os.path.exists(go + ".2.done"):
+            beside = client_steps(torch, c, solo["exe"], solo["param_ids"],
+                                  np.zeros(BROKER_SHAPE, np.int32),
+                                  P14_CO_STEPS, chain=P14_CO_CHAIN)
+            reps += 1
+            same += int(torch.equal(beside["tokens"], solo["tokens"]))
+        res.update(reps=reps, same=same, positions=solo["tokens"].numel())
+        c.close()
+    else:  # hostile
+        released()
+        rows = []
+        for lane in (False, True):
+            name = f"hostile-{'lane' if lane else 'sock'}"
+            c = RuntimeClient(sock, tenant=name, fastlane=lane)
+            for case, fn, args, ref in hostile_cases(torch):
+                ts = [torch.from_numpy(a) for a in args]
+                ids = [c.put(t).id for t in ts]
+                if ref is None:
+                    try:
+                        c.compile(fn, ts)
+                        refused = False
+                    except RuntimeError_ as e:
+                        refused = "INVALID_ARGUMENT" in str(e)
+                    rows.append({"case": case, "path": name,
+                                 "equal": refused})
+                    continue
+                exe = c.compile(fn, ts)
+                for _ in range(2 if lane else 1):
+                    c.execute_send_ids(exe.id, ids, ["out"])
+                    c.recv_reply()
+                got = c.get("out").numpy()
+                rows.append({"case": case, "path": name,
+                             "equal": bool(np.array_equal(got, ref))})
+            fl = lane_of(c, name)
+            res[name] = {"ring": fl.get("ring_steps", 0)}
+            c.close()
+        res["rows"] = rows
+        open(go + ".done", "w").close()
+    check(not torch.cuda.is_initialized(), "the tenant initialised CUDA")
+    return res
+
+
+def p14_tenant(env, tmp, go, name, args):
+    """One phase 14 tenant, started now; it prints READY once set up and
+    waits for ``go``."""
+    err = open(os.path.join(tmp, f"{name}.err"), "w+")
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                          "--child", "p14", go, *args], env=env,
+                         stdout=subprocess.PIPE, stderr=err, text=True)
+    return p, err
+
+
+def phase_fastlane(torch, tmp, direct):
+    """Phase 14 (module docstring): returns K1's launches by route.  The
+    processes it starts ahead of their step are stopped however it ends."""
+    started = []
+    try:
+        return _phase_fastlane(torch, tmp, direct, started)
+    finally:
+        for p in started:
+            if isinstance(p, Broker):
+                p.stop()
+            elif p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _phase_fastlane(torch, tmp, direct, started):
+    import threading
+
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+    from vtpu_torch.ops import flash_attention as fa
+    from vtpu_torch.runtime import server as rs
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", VTPU_FASTLANE="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    launches = {r: 0 for r in fa.ROUTES}
+
+    def reset():
+        fa.flash_attention.launches = 0
+        fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+
+    def take(label):
+        got = dict(fa.flash_attention.route_launches)
+        for r in launches:
+            launches[r] += got[r]
+        return got
+
+    def serve(sock, **kw):
+        srv = rs.make_server(sock, hbm_limit=0, core_limit=0, **kw)
+        th = threading.Thread(target=srv.serve_forever, daemon=True,
+                              kwargs={"poll_interval": 0.1})
+        th.start()
+        return srv, th
+
+    def stop(srv, th):
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+
+    def gaps(g):
+        return f"{g[0]:.2f}, {g[1]:.2f}"
+
+    def drained(srv, what):
+        deadline = time.monotonic() + 30
+        while broker_ledger(srv.state) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        check(broker_ledger(srv.state) == 0,
+              f"{what}: ledger {broker_ledger(srv.state)} after the tenants "
+              "exited")
+
+    # 14f's raw probes start now, each alone in its process; they hold
+    # the card for a moment and are read at 14f.
+    probes = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                "--child", "p14probe", op],
+                               stdout=subprocess.PIPE,
+                               stderr=subprocess.DEVNULL, text=True)
+              for op in P14_PROBES]
+    started.extend(probes)
+    sock = os.path.join(tmp, "p14.sock")
+    jsock = os.path.join(tmp, "p14j.sock")
+    srv, th = serve(sock)
+
+    # The tenants of 14a-14d start now, each released by its go file when
+    # its step comes (only 14a's connects before that).
+    kids = {}
+    for args in (("full", sock, tmp), ("parity", sock, tmp),
+                 ("rtt", sock, tmp), ("arena", sock, jsock)):
+        kids[args[0]] = p14_tenant(env, tmp, os.path.join(
+            tmp, f"p14_{args[0]}.go"), f"p14_{args[0]}", args)
+        started.append(kids[args[0]][0])
+
+    def release(*names):
+        for n in names:
+            tenant_line(*kids[n], "READY", timeout=600)
+        for n in names:
+            open(os.path.join(tmp, f"p14_{n}.go"), "w").close()
+        return [tenant_result(*kids[n], timeout=600) for n in names]
+
+    try:
+        # 14a: Llama-3-8B at full width over the lane, then the socket.
+        t0 = time.monotonic()
+        reset()
+        full, = release("full")
+        got = take("full")
+        llama = tr.TransformerConfig.llama3_8b()
+        want = 2 * P14_STEPS * llama.n_layers
+        say(f"14a llama3_8b b=2 s=512, one execute a step: lane "
+            f"{full['lane_rate']:.3f} steps/s, socket {full['sock_rate']:.3f} "
+            f"steps/s, phase 3 in process {direct['serve']:.3f}; ms between "
+            f"steps (median, largest): lane {gaps(full['lane_gaps'])}, socket "
+            f"{gaps(full['sock_gaps'])}; ring steps "
+            f"{full['ring']} of {P14_STEPS} (socket {full['fallback']}), "
+            f"then {full['ring_after']} with the gate {full['gate_after']}; "
+            f"tokens equal at {full['same']} of {full['total']}; launches "
+            f"{json.dumps(got)}; lane device time {full['device_us']} us "
+            f"billed {full['billed_us']} us; weights and compile "
+            f"{json.dumps({k: round(v, 1) for k, v in full['setup'].items()})}"
+            f" s; {time.monotonic() - t0:.1f} s")
+        check(full["ring"] >= P14_RING_MIN, f"14a: {full['ring']} ring steps")
+        check(full["ring_after"] == full["ring"] and full["gate_after"] == 2,
+              "14a: the second connection did not close the lane")
+        check(full["same"] == full["total"] and full["in_range"],
+              f"14a: lane tokens differ from socket tokens at "
+              f"{full['total'] - full['same']} positions")
+        check(got["sm90"] == want and got["wmma"] == 0,
+              f"14a: launches {got} != {want} sm90")
+        drained(srv, "14a")
+
+        # 14b: parity with in-process serving, bench config.
+        t0 = time.monotonic()
+        cfg = dataclasses.replace(tr.TransformerConfig.bench(),
+                                  use_flash=True)
+        drawn, tree = drawn_weights(torch, cfg, P14_SEED, "cuda")
+        torch.save(tree, os.path.join(tmp, "p14_weights.pt"))
+        prompt = np.random.default_rng(P14_SEED).integers(
+            0, cfg.vocab, BROKER_SHAPE, dtype=np.int32)
+        ref = entry.serve(cfg, *BROKER_SHAPE, steps=P14_PAR_STEPS,
+                          device="cuda", weights=tree, prompt=prompt)
+        with torch.inference_mode():
+            ref_logits = ref["model"](
+                torch.from_numpy(prompt).cuda()).float().cpu()
+        ref_tokens, ref_rate = ref["tokens"], ref["steps_per_s"]
+        del drawn, tree, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset()
+        par, = release("parity")
+        got = take("parity")
+        out = np.load(os.path.join(tmp, "p14_parity.npz"))
+        logits = torch.from_numpy(out["logits"])
+        rel = ((logits - ref_logits).norm() / ref_logits.norm()).item()
+        same = {k: int((torch.from_numpy(out[k]) == ref_tokens).sum())
+                for k in ("lane", "sock")}
+        total = ref_tokens.numel()
+        say(f"14b parity (bench b=4 s=512, PUT weights, one execute a "
+            f"step): lane {par['lane_rate']:.3f} steps/s, socket "
+            f"{par['sock_rate']:.3f}, in process {ref_rate:.3f}; ms between "
+            f"steps (median, largest): lane {gaps(par['lane_gaps'])}, socket "
+            f"{gaps(par['sock_gaps'])}; logits rel "
+            f"L2 {rel:.3g} (tol {LOGITS_REL_L2}); tokens after "
+            f"{P14_PAR_STEPS} steps equal at {same['lane']} (lane) and "
+            f"{same['sock']} (socket) of {total}; ring steps {par['ring']}; "
+            f"launches {json.dumps(got)}; {time.monotonic() - t0:.1f} s")
+        check(torch.isfinite(logits).all().item() and rel < LOGITS_REL_L2,
+              f"14b: lane logits disagree with in-process serving: {rel}")
+        check(min(same.values()) >= TOKEN_AGREEMENT * total,
+              f"14b: tokens agree at {same} of {total}")
+        check(par["ring"] >= P14_PAR_STEPS, f"14b: {par['ring']} ring steps")
+        want = (2 * P14_PAR_STEPS + 2) * cfg.n_layers
+        check(got["sm90"] == want and got["wmma"] == 0,
+              f"14b: launches {got} != {want} sm90")
+        drained(srv, "14b")
+
+        # 14c and 14d: the round trip, and the arenas with the journal off
+        # (this broker) and on (a second one, its journal on /dev/shm).
+        t0 = time.monotonic()
+        jdir, where = journal_home(tmp, 2 * P14_ARENA_N * P14_ARENA_BYTES)
+        jsrv, jth = serve(jsock, journal_dir=jdir)
+        try:
+            rtt, arena = release("rtt", "arena")
+        finally:
+            stop(jsrv, jth)
+        for name in ("rtt-lane", "rtt-sock"):
+            r = rtt[name]
+            say(f"14c {name}: p50 {r['p50_us']:.1f} us, p99 "
+                f"{r['p99_us']:.1f} us over {P14_RTT_N} synchronous "
+                f"executes of a {P14_RTT_FLOATS}-float program; ring steps "
+                f"{r['ring']}")
+            check(r["ok"], f"14c {name}: wrong values")
+        check(rtt["rtt-lane"]["ring"] >= P14_RTT_RING_SHARE * P14_RTT_N,
+              f"14c: {rtt['rtt-lane']['ring']} ring steps of {P14_RTT_N}")
+        for name, r in sorted((k, v) for k, v in arena.items()
+                              if k.startswith("arena-")):
+            say(f"14d {name} (journal {'on ' + where if '-on-' in name else 'off'}"
+                f"): PUT {r['put_gbs']:.3f} GB/s, GET {r['get_gbs']:.3f} GB/s "
+                f"for {P14_ARENA_N} arrays of {P14_ARENA_BYTES >> 20} MiB; "
+                f"ledger {r['ledger']} of {r['want']}")
+            check(r["equal"], f"14d {name}: values differ")
+            check(r["ledger"] == r["want"], f"14d {name}: ledger "
+                  f"{r['ledger']} != {r['want']}")
+        say(f"14c-d took {time.monotonic() - t0:.1f} s")
+        drained(srv, "14c-d")
+    finally:
+        stop(srv, th)
+
+    # 14f's broker process starts now and binds while 14e runs.
+    fsock = os.path.join(tmp, "p14f.sock")
+    lease = os.path.join(tmp, "p14f.lease.json")
+    br = Broker("p14f", fsock, os.path.join(tmp, "p14f.journal"), tmp,
+                {"device": "cuda"}, lease)
+    started.append(br)
+
+    # 14e: two lane tenants at 50% in a broker that does not lend idle
+    # share, then one alone at 100%.
+    t0 = time.monotonic()
+    ssock = os.path.join(tmp, "p14s.sock")
+    ssrv, sth = serve(ssock, work_conserving=False)
+    try:
+        reset()
+        # All three set up at once; the pair is released together, then
+        # the one alone once the pair is done.
+        go_pair = os.path.join(tmp, "p14_pair.go")
+        go_solo = os.path.join(tmp, "p14_solo.go")
+        kids = [p14_tenant(env, tmp, go_pair, f"p14_pair{i}",
+                           ("share", ssock, str(P14_SHARE_CORE)))
+                for i in range(2)]
+        kids.append(p14_tenant(env, tmp, go_solo, "p14_solo",
+                               ("share", ssock, "100")))
+        started.extend(p for p, _ in kids)
+        for p, err in kids:
+            tenant_line(p, err, "READY", timeout=300)
+        open(go_pair, "w").close()
+        pair = [tenant_result(p, err, timeout=300) for p, err in kids[:2]]
+        open(go_solo, "w").close()
+        solo = [tenant_result(*kids[2], timeout=300)]
+        got = take("share")
+        lo, hi = P14_SHARE_BAND
+        for label, rows in (("pair", pair), ("alone", solo)):
+            say(f"14e {label}: " + "; ".join(
+                f"core {r['core']}%: {r['steps_per_s']:.2f} steps/s, booked "
+                f"{r['booked_us'] / 1e6:.3f} s of {r['window_s']:.3f} s "
+                f"({r['booked_us'] / 1e6 / r['window_s']:.3f}), lease grants "
+                f"{r['grants']}, ring {r['ring']} socket {r['fallback']}"
+                for r in rows))
+        for r in pair:
+            share = r["booked_us"] / 1e6 / r["window_s"]
+            check(lo <= share <= hi, f"14e: a 50% lane tenant booked "
+                  f"{share:.3f} of its window, outside {lo}-{hi}")
+            check(r["grants"] > 0, "14e: no lease granted")
+        share = solo[0]["booked_us"] / 1e6 / solo[0]["window_s"]
+        check(share >= P14_LONE_MIN, f"14e: the lone tenant booked "
+              f"{share:.3f} of its window")
+        check(got["wmma"] == 0, f"14e: launches {got}")
+        drained(ssrv, "14e")
+    finally:
+        stop(ssrv, sth)
+    say(f"14e took {time.monotonic() - t0:.1f} s")
+
+    # 14f: F1.  The raw ops on the card, each alone; then a broker process,
+    # a co-tenant alone and beside a hostile one.
+    t0 = time.monotonic()
+    raw = {}
+    for op, pr in zip(P14_PROBES, probes):
+        out, _ = pr.communicate(timeout=300)
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        raw[op] = (json.loads(line[-1][7:])["raw"] if line
+                   else f"rc {pr.returncode}")
+    say("14f the raw ops on the card with an out-of-range operand: "
+        + json.dumps(raw))
+    try:
+        br.bound()
+        pid = br.p.pid
+        fenv = dict(env, VTPU_RPC_TIMEOUT_S="300")
+        go = os.path.join(tmp, "p14_f1.go")
+        co = p14_tenant(fenv, tmp, go, "p14_co", ("co", fsock, tmp))
+        host = p14_tenant(fenv, tmp, go + ".2", "p14_hostile",
+                          ("hostile", fsock, tmp))
+        started.extend((co[0], host[0]))
+        for p, err in (co, host):
+            tenant_line(p, err, "READY", timeout=300)
+        open(go, "w").close()                   # the co-tenant alone
+        tenant_line(*co, "SOLO", timeout=300)
+        open(go + ".2", "w").close()            # both at once
+        hostile = tenant_result(*host, timeout=300)
+        cor = tenant_result(*co, timeout=300)
+        bad = [r for r in hostile["rows"] if not r["equal"]]
+        alive = br.p.poll() is None and br.p.pid == pid
+        br.shutdown()
+        f_launch = br.launches()
+    finally:
+        br.stop()
+    for r in ("sm90", "wmma"):
+        launches[r] += int(f_launch.get(r, 0))
+    say(f"14f: {len(hostile['rows'])} hostile programs (socket and lane, "
+        f"ring steps {hostile['hostile-lane']['ring']}): {len(bad)} differ "
+        f"from the clamp-and-drop reference; broker pid {pid} alive "
+        f"through them: {alive}; the co-tenant served {cor['reps']} runs of "
+        f"{P14_CO_STEPS} steps beside them, {cor['same']} equal to its solo "
+        f"run at all {cor['positions']} positions; broker launches "
+        f"{json.dumps(f_launch)}; {time.monotonic() - t0:.1f} s")
+    check(alive, "14f: the broker died under the hostile tenant")
+    check(not bad, f"14f: hostile outputs differ from the reference: {bad}")
+    check(hostile["hostile-lane"]["ring"] >= sum(
+        ref is not None for *_, ref in hostile_cases(torch)),
+          "14f: the hostile programs did not ride the ring")
+    check(cor["same"] == cor["reps"],
+          f"14f: {cor['reps'] - cor['same']} of the co-tenant's runs beside "
+          "the hostile tenant changed its tokens")
+    return launches
+
+
 def child_main(args):
     """``--child serve`` (phase 6), ``--child metered <go file>`` (phase
     7), ``--child granted <go file>`` (phase 8), ``--child train`` or
@@ -3223,6 +3976,10 @@ def child_main(args):
             res = brokered_child(torch, torch_maps, *args[1:])
         elif args[0] == "p13":
             res = p13_child(torch, *args[1:4], json.loads(args[4]))
+        elif args[0] == "p14":
+            res = p14_child(torch, *args[1:5])
+        elif args[0] == "p14probe":
+            res = probe_child(torch, args[1])
         else:
             res = metered_child(torch, args[1])
     except Failed as e:
@@ -3266,8 +4023,9 @@ def main():
             pods = phase(10, phase_pods, torch, tmp)
             phase(11, phase_views, torch, tmp, pods["host"],
                   [r["steps_per_s"] for r in pods["tenants"]])
-            brokered = phase(12, phase_broker, torch, tmp, direct)
+            brokered = phase(12, phase_broker, torch, tmp)
             durable = phase(13, phase_durability, torch, tmp, direct)
+            laned = phase(14, phase_fastlane, torch, tmp, direct)
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -3277,6 +4035,7 @@ def main():
          "replaces": KERNEL_REPLACES, "launches": launches[route],
          "brokered_launches": brokered[route],
          "phase13_launches": durable[route],
+         "phase14_launches": laned[route],
          "shape": {"bh": 64, "s": SERVE_S, "d": 128, "causal": True},
          **timed[SERVE_S][route]}
         for route, (lib, _symbol) in ROUTES.items()]}))

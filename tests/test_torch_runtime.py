@@ -698,7 +698,12 @@ def test_deferred_verbs_refused_with_their_item(port, verb, item):
             assert TP.recv_msg(s)["ok"]
         TP.send_msg(s, {"kind": verb, "tenant": "d", "exe": "e", "args": []})
         resp = TP.recv_msg(s)
-        assert resp["code"] == "UNIMPLEMENTED" and item in resp["error"]
+        if verb == TP.FASTBIND:
+            # Ported with 6(c): a tenant without a lane gets vtpu's typed
+            # refusal.
+            assert resp["code"] == "FASTLANE_OFF"
+        else:
+            assert resp["code"] == "UNIMPLEMENTED" and item in resp["error"]
         TP.send_msg(s, {"kind": TP.STATS})
         assert TP.recv_msg(s)["ok"]
     finally:
@@ -723,6 +728,15 @@ def test_trace_and_slo_answer_disabled(port):
     ("VTPU_SLO", "1", "6(d)")])
 def test_deferred_env_refused(tmp_path, monkeypatch, key, value, item):
     monkeypatch.setenv(key, value)
+    if key == "VTPU_FASTLANE":
+        # Ported with 6(c): the broker serves lanes.
+        srv = tserver.make_server(str(tmp_path / "x.sock"), 0, 0,
+                                  device="cpu")
+        try:
+            assert srv.state.fastlane.serve
+        finally:
+            srv.server_close()
+        return
     with pytest.raises(RuntimeError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):
         tserver.make_server(str(tmp_path / "x.sock"), 0, 0, device="cpu")
@@ -1112,4 +1126,251 @@ def test_tiny_transformer_through_the_port_broker(port):
     c.execute_recv()
     got = c.get("logits").numpy()
     np.testing.assert_allclose(got, want_logits, atol=1e-4, rtol=1e-4)
+    c.close()
+
+
+# -- F1: a tenant's out-of-range indices end nothing but its own results -------
+
+F1_X = np.arange(20, dtype=np.float32).reshape(5, 4)
+F1_IDX = np.array([-7, -1, 0, 3, 4, 5, 9], np.int64)
+
+
+def _f1_cases():
+    """(torch program, the JAX program of the same semantics, arguments):
+    a gather clamps (``index`` wraps [-n, 0) first, as ``x[i]`` does; the
+    others clamp below at 0, as a raw XLA start index does), a scatter
+    drops (``index_put`` wraps [-n, 0) first, as ``x.at[i]`` does),
+    bernoulli clamps its probabilities (NaN as 0)."""
+    F = torch.nn.functional
+    col = np.arange(4)
+    return {
+        "index_select": (lambda a, i: torch.index_select(a, 0, i),
+                         lambda a, i: jnp.take(a, i, axis=0, mode="clip"),
+                         [F1_X, F1_IDX]),
+        # take_along_axis would wrap a negative first: XLA's raw gather
+        # clamps it.
+        "gather": (lambda a, i: torch.gather(a, 0, i),
+                   lambda a, i: jnp.take_along_axis(
+                       a, jnp.clip(i, 0, a.shape[0] - 1), 0),
+                   [F1_X, np.array([[9, -2, 1, 0], [4, 5, -9, 2]],
+                                   np.int64)]),
+        "embedding": (lambda w, i: F.embedding(i, w),
+                      lambda w, i: jnp.take(w, i, axis=0, mode="clip"),
+                      [F1_X, F1_IDX]),
+        "index": (lambda a, i: a[i], lambda a, i: a[i], [F1_X, F1_IDX]),
+        "index_put": (lambda a, i, v: torch.index_put(a, (i,), v),
+                      lambda a, i, v: a.at[i].set(v),
+                      [F1_X, np.array([1, 9, -1, -9], np.int64),
+                       np.full((4, 4), -1.0, np.float32)]),
+        "index_put_accumulate": (
+            lambda a, i, v: torch.index_put(a, (i,), v, True),
+            lambda a, i, v: a.at[i].add(v),
+            [F1_X, np.array([1, 9, -1, -9, 1], np.int64),
+             np.full((5, 4), 2.0, np.float32)]),
+        # A negative scatter index is out of range (no wrap), as in
+        # XLA's raw scatter: dropped.
+        "scatter_add": (lambda a, i, v: torch.scatter_add(a, 0, i, v),
+                        lambda a, i, v: a.at[
+                            jnp.where(i[0] < 0, a.shape[0], i[0]),
+                            col].add(v[0]),
+                        [F1_X, np.array([[0, 9, -1, 4]], np.int64),
+                         np.ones((1, 4), np.float32)]),
+        "bernoulli": (lambda p: torch.bernoulli(p),
+                      lambda p: jax.random.bernoulli(
+                          jax.random.PRNGKey(0), p).astype(jnp.float32),
+                      [np.array([-3.0, 0.0, 1.0, 7.0, np.nan], np.float32)]),
+    }
+
+
+@pytest.mark.parametrize("name", list(_f1_cases()))
+def test_out_of_range_indices_bounded_as_vtpu(tmp_path, monkeypatch, name):
+    """F1: a program with out-of-range indices gives what vtpu's broker
+    gives for the JAX program of the same semantics, over the socket and
+    (the port) over the fastlane's ring; the broker serves on."""
+    tfn, jfn, args = _f1_cases()[name]
+
+    def scenario(side, sock):
+        c = side.client(sock, tenant="f1")
+        fn = jfn if side.name == "vtpu" else tfn
+        ids = [c.put(a if side.name == "vtpu" else torch.from_numpy(a)).id
+               for a in args]
+        exe = c.compile(fn, args if side.name == "vtpu"
+                        else [torch.from_numpy(a) for a in args])
+        c.execute_send_ids(exe.id, ids, ["out"])
+        c.recv_reply()
+        got = side.np(c.get("out"))
+        assert "f1" in c.stats()
+        c.close()
+        return got
+
+    want, got = run_both(tmp_path, scenario)
+    np.testing.assert_array_equal(got, want)
+    # The ring runs the same bounded program.
+    monkeypatch.setenv("VTPU_FASTLANE", "1")
+    side = Side("port")
+    (tmp_path / "lane").mkdir()
+    sock = side.start(tmp_path / "lane")
+    try:
+        c = tclient.RuntimeClient(sock, tenant="f1")
+        assert c._lane is not None
+        ids = [c.put(torch.from_numpy(a)).id for a in args]
+        exe = c.compile(tfn, [torch.from_numpy(a) for a in args])
+        for _ in range(3):  # the first primes over the socket
+            c.execute_send_ids(exe.id, ids, ["out"])
+            c.recv_reply()
+        np.testing.assert_array_equal(c.get("out").numpy(), want)
+        assert c.stats()["f1"]["fastlane"]["ring_steps"] >= 2
+        c.close()
+    finally:
+        side.stop()
+
+
+def test_unboundable_overloads_refused(port):
+    """repeat_interleave with a tensor of repeats cannot be bounded (its
+    card's check is an assert on the data): COMPILE refuses it."""
+    c = tclient.RuntimeClient(port, tenant="ri")
+    with pytest.raises(tclient.RuntimeError_, match="INVALID_ARGUMENT"):
+        c.compile(lambda x, r: torch.repeat_interleave(x, r, dim=0,
+                                                       output_size=6),
+                  [torch.ones(3, 2), torch.tensor([1, 2, 3])])
+    exe = c.compile(lambda x: torch.repeat_interleave(x, 2, dim=0),
+                    [torch.ones(3, 2)])
+    assert exe(c.put(torch.ones(3, 2)))[0].fetch().shape == (6, 2)
+    c.close()
+
+
+def test_in_range_indices_unchanged_bit_for_bit():
+    """The bounding pass leaves in-range results alone: the bounded
+    program and the plain function agree bit for bit."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((6, 5)).astype(np.float32))
+    i = torch.from_numpy(rng.integers(0, 6, (9,)))
+    v = torch.from_numpy(rng.standard_normal((9, 5)).astype(np.float32))
+
+    def fn(x, i, v):
+        return (x[i].sum(0) + torch.index_select(x, 0, i).mean(0),
+                torch.index_put(x, (i,), v, True),
+                torch.gather(x, 0, i[:5].reshape(1, 5).expand(2, 5)),
+                torch.nn.functional.one_hot(i, 6))
+
+    prog = tserver.load_program(
+        tclient.export_graph(fn, [x, i, v]), torch.device("cpu"))
+    got = prog.run([x, i, v], 1, ())
+    for g, w in zip(got, fn(x, i, v)):
+        assert torch.equal(g, w)
+
+
+def _mask_put_ref(x, mask, idx, v, accumulate):
+    """numpy's ``x[mask, idx] = v`` (or ``+=``) with the out-of-range
+    integer indices dropped, after wrapping [-n, 0)."""
+    out = x.copy()
+    n = x.shape[mask.ndim]
+    for (r, c), i in zip(np.argwhere(mask), idx):
+        i = i + n if -n <= i < 0 else i
+        if 0 <= i < n:
+            out[r, c, i] = out[r, c, i] + v[0] if accumulate else v[0]
+    return out
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_index_put_after_a_mask_bounds_the_dim_it_reads(port, accumulate):
+    """A 2-D mask covers two dims: the integer index after it reads the
+    third (size 3), not the second (size 6).  Its out-of-range entries
+    (4, which the second dim would hold, and -9) are dropped."""
+    x = np.arange(36, dtype=np.float32).reshape(2, 6, 3)
+    mask = np.zeros((2, 6), bool)
+    mask[0, 1] = mask[1, 2] = mask[1, 5] = mask[0, 4] = True
+    idx = np.array([1, 4, -1, -9], np.int64)
+    v = np.array([-1.0], np.float32)
+    ts = [torch.from_numpy(a) for a in (x, mask, idx, v)]
+    c = tclient.RuntimeClient(port, tenant="mask")
+    exe = c.compile(lambda a, m, i, u: torch.index_put(a, (m, i), u,
+                                                       accumulate), ts)
+    got = exe(*[c.put(t) for t in ts])[0].fetch().numpy()
+    np.testing.assert_array_equal(
+        got, _mask_put_ref(x, mask, idx, v, accumulate))
+    assert "mask" in c.stats()
+    c.close()
+
+
+@pytest.mark.parametrize("name", ["gather", "index_select", "embedding",
+                                  "index", "take_along_dim"])
+def test_gather_from_an_empty_dim_refused(port, name):
+    """A non-empty index into a dim of size 0 has nothing to clamp to:
+    COMPILE refuses it, an empty index into it still runs, and the broker
+    serves on."""
+    F = torch.nn.functional
+    fns = {"gather": lambda a, i: torch.gather(a, 0, i[:, None].expand(-1, 4)),
+           "index_select": lambda a, i: torch.index_select(a, 0, i),
+           "embedding": lambda a, i: F.embedding(i, a),
+           "index": lambda a, i: a[i],
+           "take_along_dim": lambda a, i: torch.take_along_dim(
+               a, i[:, None].expand(-1, 4), 0)}
+    c = tclient.RuntimeClient(port, tenant="empty")
+    x = torch.zeros(0, 4)
+    with pytest.raises(tclient.RuntimeError_, match="size 0"):
+        c.compile(fns[name], [x, torch.tensor([0, 3])])
+    none = torch.zeros(0, dtype=torch.int64)
+    exe = c.compile(fns[name], [x, none])
+    assert exe(c.put(x), c.put(none))[0].fetch().numel() == 0
+    c.close()
+
+
+@pytest.mark.parametrize("op", [torch.scatter, torch.scatter_add])
+def test_scatter_into_a_scalar_refused(port, op):
+    """A 0-d target has no dim to pad a dropped update into: COMPILE
+    refuses the scatter, and the broker serves on."""
+    c = tclient.RuntimeClient(port, tenant="scalar")
+    with pytest.raises(tclient.RuntimeError_, match="0-d"):
+        c.compile(lambda a, i, v: op(a, 0, i, v),
+                  [torch.tensor(1.0), torch.tensor(3), torch.tensor(5.0)])
+    assert "scalar" in c.stats()
+    c.close()
+
+
+@pytest.mark.parametrize("name", ["index_put_then_index_put",
+                                  "scatter_then_gather",
+                                  "accumulate_then_index",
+                                  "one_hot_then_index_select"])
+def test_bounded_ops_read_bounded_outputs(name):
+    """A bounded op that reads another's output loads (the pass gives
+    every node it makes its fake value) and, in range, gives the plain
+    function's bits."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((6, 5)).astype(np.float32))
+    i = torch.from_numpy(rng.integers(0, 5, (4,)))
+    v = torch.from_numpy(rng.standard_normal((4, 5)).astype(np.float32))
+    fns = {
+        "index_put_then_index_put": lambda x, i, v: torch.index_put(
+            torch.index_put(x, (i,), v), (i[:2],), -v[:2]),
+        "scatter_then_gather": lambda x, i, v: torch.gather(
+            torch.scatter(x, 0, i[:, None].expand(4, 5), v), 0,
+            i[:, None].expand(4, 5)),
+        "accumulate_then_index": lambda x, i, v: torch.index_put(
+            x, (i,), v, True)[i],
+        "one_hot_then_index_select": lambda x, i, v: torch.index_select(
+            x, 0, torch.nn.functional.one_hot(i, 6).argmax(1)),
+    }
+    fn = fns[name]
+    prog = tserver.load_program(
+        tclient.export_graph(fn, [x, i, v]), torch.device("cpu"))
+    assert torch.equal(prog.run([x, i, v], 1, ())[0], fn(x, i, v))
+
+
+def test_arguments_held_to_the_programs_inputs(port):
+    """An argument of another dtype or shape than the graph's input is
+    refused before the graph runs (a float64 array through a float32
+    graph would make outputs larger than the bytes charged for them), and
+    the outputs' admission is handed back."""
+    c = tclient.RuntimeClient(port, tenant="args")
+    exe = c.compile(lambda a: a * 2.0, [torch.ones(256)])
+    used = c.stats()["args"]["used_bytes"]
+    for bad in (torch.ones(256, dtype=torch.float64), torch.ones(255)):
+        h = c.put(bad)
+        with pytest.raises(tclient.RuntimeError_, match="do not match"):
+            exe(h)
+        c.delete(h.id)
+        assert c.stats()["args"]["used_bytes"] == used
+    assert torch.equal(exe(c.put(torch.ones(256)))[0].fetch(),
+                       torch.full((256,), 2.0))
     c.close()
