@@ -18,10 +18,10 @@ interposer's NVML hooks give it the same view
 rule).  metricsd is what the node's Prometheus exporter
 (``tools/metrics_server.py --metricsd``) and ``vtpu-smi metricsd``
 scrape.  A CUDA node runs no runtime metrics service of its own, so
-there is nothing to pass other metrics on to: they answer NOT_FOUND.  The
-broker's ledger and SLO enrichment wait for the broker's SLO plane
-(ROADMAP Queue 1 item 6(d)); until then the SLO metrics answer with no
-values, as ``vtpu``'s do without a broker.
+there is nothing to pass other metrics on to: they answer NOT_FOUND.  A
+brokered pod's ledger and SLO come from the broker's bind-free STATS and
+SLO verbs (``backend.RegionBackend``); without a broker the SLO metrics
+answer with no values, as ``vtpu``'s do.
 """
 
 from __future__ import annotations

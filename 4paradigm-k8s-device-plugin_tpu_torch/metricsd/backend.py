@@ -10,10 +10,13 @@ rescale, filter) live there, so every backend gets them.
   Allocate env contract, the region ``vtpu-smi`` and ``tools.tpu_info``
   read.  It never takes a slot in the region (a ``SharedRegion`` opened
   with no limits adopts it as it is), so a probe changes nothing a
-  tenant sees.  ``vtpu``'s enrichment from the broker's STATS and SLO
-  verbs waits for the broker's SLO plane (ROADMAP Queue 1 item 6(d)): a
-  ``broker_socket`` is refused, not ignored, and ``slo_summary`` answers
-  None, as ``vtpu``'s does without a broker socket.
+  tenant sees.  With a ``broker_socket`` (``VTPU_METRICSD_BROKER`` or the
+  grant's runtime socket) and the pod's tenant name, it reads the
+  broker's bind-free STATS and SLO verbs on the main socket (no HELLO, no
+  slot, no claim of a card), as ``vtpu``'s does: a brokered grant's
+  ledger lives in the broker, so its usage stands in for a region the
+  interposer never touched, and ``slo_summary`` is the tenant's own row
+  (attainment and burn of the short window, e2e p99, the objective).
 - ``FakeBackend``: a deterministic synthetic tenant for the CPU tests and
   ``--selftest``: no region, no native library.
 """
@@ -35,11 +38,6 @@ _RAW_HBM_FALLBACK = 81559 * 2**20
 
 # The shortest duty window: NVML's own shortest sample period (1/6 s).
 MIN_WINDOW_S = 1.0 / 6.0
-
-BROKER_REFUSED = ("metricsd: the broker's ledger and SLO enrichment is not "
-                  "ported to the H100 yet (ROADMAP.md, Queue 1 item 6(d), "
-                  "the SLO plane)")
-
 
 @dataclass
 class DeviceView:
@@ -69,11 +67,12 @@ class RegionBackend(Backend):
 
     def __init__(self, region_path: Optional[str] = None,
                  quota: Optional[envspec.QuotaSpec] = None,
-                 broker_socket: Optional[str] = None):
-        if broker_socket:
-            raise ValueError(f"{BROKER_REFUSED}: {broker_socket}")
+                 broker_socket: Optional[str] = None,
+                 tenant: Optional[str] = None):
         self.quota = quota if quota is not None else envspec.quota_from_env()
         self.region_path = region_path or self.quota.shared_cache
+        self.broker_socket = broker_socket
+        self.tenant = tenant
         # The duty cycle needs two samples: ordinal -> (busy_us, t, duty).
         self._prev: Dict[int, tuple] = {}
 
@@ -89,6 +88,33 @@ class RegionBackend(Backend):
             log.warn("metricsd: region %s unreadable: %s",
                      self.region_path, e)
             return None
+
+    def _broker(self, msg: Dict) -> Optional[Dict]:
+        """One bind-free request on the broker's main socket; None when it
+        does not answer ok."""
+        from ..runtime import protocol as P
+        from ..tools.vtpu_smi import request
+        try:
+            resp = request(self.broker_socket, msg, timeout=2.0)
+        except (OSError, P.ProtocolError) as e:
+            log.warn("metricsd: broker %s unreachable: %s",
+                     self.broker_socket, e)
+            return None
+        return resp if resp.get("ok") else None
+
+    def _broker_usage(self) -> Optional[Dict]:
+        """The tenant's STATS row (its ledger), by name, or the only row."""
+        if not self.broker_socket:
+            return None
+        resp = self._broker({"kind": "stats"})
+        if resp is None:
+            return None
+        tenants = resp.get("tenants", {})
+        if self.tenant:
+            return tenants.get(self.tenant)
+        if len(tenants) == 1:
+            return next(iter(tenants.values()))
+        return None
 
     def _ordinals(self, region) -> List[int]:
         if self.quota.device_map:
@@ -116,6 +142,7 @@ class RegionBackend(Backend):
     def devices(self) -> List[DeviceView]:
         region = self._open_region()
         chip_of = {e.ordinal: e.chip_uuid for e in self.quota.device_map}
+        broker = self._broker_usage()
         now = time.monotonic()
         out: List[DeviceView] = []
         try:
@@ -136,7 +163,38 @@ class RegionBackend(Backend):
         finally:
             if region is not None:
                 region.close()
+        # A brokered grant: the ledger is the broker's; its usage stands
+        # in for a region the interposer never touched (used 0).  The
+        # broker's i-th card is the grant's i-th ordinal.
+        if broker and out and not any(v.hbm_used_bytes for v in out):
+            for view, pc in zip(out, broker.get("per_chip") or ()):
+                view.hbm_used_bytes = int(pc.get("used_bytes", 0))
+                lim = int(pc.get("limit_bytes", 0))
+                if lim and not view.hbm_limit_bytes:
+                    view.hbm_limit_bytes = lim
         return out
+
+    def slo_summary(self) -> Optional[Dict]:
+        """The tenant's own SLO row, read bind-free by name on the main
+        socket; None without a broker, a name or a row."""
+        if not self.broker_socket or not self.tenant:
+            return None
+        resp = self._broker({"kind": "slo", "tenant": self.tenant})
+        if resp is None or not resp.get("enabled"):
+            return None
+        row = (resp.get("tenants") or {}).get(self.tenant)
+        if not row:
+            return None
+        wins = row.get("windows") or {}
+        short = wins[min(wins, key=float)] if wins else {}
+        return {
+            "attainment_pct": float(short.get("attainment_pct", 100.0)),
+            "p99_us": float((row.get("phases") or {})
+                            .get("e2e", {}).get("p99_us", 0.0)),
+            "target_us": float((row.get("objective") or {})
+                               .get("target_us", 0.0)),
+            "burn_rate": float(short.get("burn_rate", 0.0)),
+        }
 
 
 class FakeBackend(Backend):

@@ -47,15 +47,14 @@ from typing import Dict, List, Optional
 from ..utils import envspec
 from ..utils import logging as log
 from . import DEFAULT_PORT
-from .backend import (BROKER_REFUSED, Backend, DeviceView, FakeBackend,
-                      RegionBackend)
+from .backend import Backend, DeviceView, FakeBackend, RegionBackend
 
 # Wire metric names (vtpu's).
 METRIC_HBM_TOTAL = "tpu.runtime.hbm.memory.total.bytes"
 METRIC_HBM_USAGE = "tpu.runtime.hbm.memory.usage.bytes"
 METRIC_DUTY_CYCLE = "tpu.runtime.tensorcore.dutycycle.percent"
-# The pod's own SLO, rescaled like the duty ("of MY objective"); no values
-# until the broker's SLO plane is ported (ROADMAP Queue 1 item 6(d)).
+# The pod's own SLO, rescaled like the duty ("of MY objective"), from the
+# broker's SLO plane; no values without a broker (as in ``vtpu``).
 METRIC_SLO_ATTAINMENT = "vtpu.slo.attainment.percent"
 METRIC_SLO_P99 = "vtpu.slo.e2e.p99.microseconds"
 # metricsd's own gauges, on the same wire, so that the node's exporter
@@ -213,14 +212,16 @@ def make_server(port: int, backend: Backend, host: str = "127.0.0.1"):
 
 def backend_from_env(env: Optional[Dict[str, str]] = None) -> Backend:
     """The backend the environment names: the fake one under
-    ``VTPU_METRICSD_FAKE=1``, else the pod's region.  A broker socket
-    (``VTPU_METRICSD_BROKER``, ``VTPU_RUNTIME_SOCKET``) is refused."""
+    ``VTPU_METRICSD_FAKE=1``, else the pod's region, enriched from the
+    broker at ``VTPU_METRICSD_BROKER`` (else the grant's runtime socket)
+    for the tenant ``VTPU_TENANT``."""
     env = dict(os.environ if env is None else env)
     if env.get("VTPU_METRICSD_FAKE") == "1":
         return FakeBackend.from_env(env)
     return RegionBackend(quota=envspec.quota_from_env(env),
                          broker_socket=env.get("VTPU_METRICSD_BROKER")
-                         or env.get(envspec.ENV_RUNTIME_SOCKET))
+                         or env.get(envspec.ENV_RUNTIME_SOCKET),
+                         tenant=env.get("VTPU_TENANT"))
 
 
 _started = None
@@ -314,28 +315,24 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="the accounting region (default: the Allocate "
                          "env contract's)")
     ap.add_argument("--broker", default=None, metavar="SOCKET",
-                    help="refused: the broker's SLO plane is not ported "
-                         "yet (ROADMAP Queue 1 item 6(d))")
+                    help="the broker's MAIN socket: the tenant's ledger and "
+                         "SLO from its bind-free STATS and SLO (default "
+                         "VTPU_METRICSD_BROKER; the tenant is VTPU_TENANT)")
     ap.add_argument("--fake", action="store_true",
                     help="a synthetic tenant (CPU tests)")
     ap.add_argument("--selftest", action="store_true",
                     help="start a fake tenant's server, query it, check "
                          "the clamp")
     ns = ap.parse_args(argv)
-    if ns.broker:
-        ap.error(f"--broker: {BROKER_REFUSED}")
     if ns.selftest:
         return selftest()
     if ns.fake:
         backend: Backend = FakeBackend.from_env()
     else:
-        try:
-            backend = RegionBackend(
-                region_path=ns.region,
-                broker_socket=os.environ.get("VTPU_METRICSD_BROKER"))
-        except ValueError as e:
-            log.error("%s", e)
-            return 2
+        backend = RegionBackend(
+            region_path=ns.region,
+            broker_socket=ns.broker or os.environ.get("VTPU_METRICSD_BROKER"),
+            tenant=os.environ.get("VTPU_TENANT"))
     try:
         server, _, bound = make_server(ns.port, backend, host=ns.host)
     except (OSError, RuntimeError) as e:

@@ -323,6 +323,16 @@ class RuntimeClient:
             hello["hbm_limit"] = int(hbm)
         if core is not None:
             hello["core_limit"] = int(core)
+        # The SLO objective the grant declares, if any: the broker's plane
+        # judges attainment against it instead of the share's default.
+        for field, raw in (
+                ("slo_target_us", os.environ.get("VTPU_SLO_TARGET_US")),
+                ("slo_floor_steps", os.environ.get("VTPU_SLO_FLOOR_STEPS"))):
+            if raw:
+                try:
+                    hello[field] = float(raw)
+                except ValueError:
+                    pass
         if self._fl_want:
             hello["fastlane"] = True
         self._hello = hello
@@ -866,6 +876,16 @@ class RuntimeClient:
 
     def stats(self) -> Dict[str, Any]:
         return self._rpc({"kind": P.STATS})["tenants"]
+
+    def slo(self) -> Dict[str, Any]:
+        """This tenant's own row of the broker's SLO plane
+        (``runtime/slo.py``): phase quantiles, burn rates, its blame row,
+        its fairness.  The broker scopes the reply to the bound tenant;
+        co-tenants' rows and the blame matrix are the admin socket's."""
+        r = self._rpc({"kind": P.SLO})
+        return {"enabled": r.get("enabled", False),
+                "tenants": r.get("tenants", {}),
+                "fairness": r.get("fairness")}
 
     def trace(self, tenant: Optional[str] = None,
               limit: int = 0) -> Dict[str, Any]:

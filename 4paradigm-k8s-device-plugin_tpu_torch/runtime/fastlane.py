@@ -38,12 +38,18 @@ What is CUDA's here:
   client reuses the region after it), and the outputs own their storage
   (``Program.run`` copies a view).
 
+- **The SLO harvest is the meter's.**  ``meter_batch`` feeds the SLO plane
+  (``runtime/slo.py``) once a batch's end event is seen: each item's total
+  runs from its client's submit stamp to that moment, and its device phase
+  is its share of the batch's device time by estimate, the split the
+  routes learn by (the client's bucket waits fall in the queue phase, as
+  in ``vtpu``).
+
 Left for later slices, as in ``vtpu`` with the matching knobs off: sharded
 lanes over several cards (``VTPU_FASTLANE_MULTICHIP``, the completion
 vector; a HELLO over several cards is refused, 6(f)); minting burst
-credits into the ring's bank words (6(f), so the bank stays 0); the SLO
-harvest (the SLO plane answers ``enabled: false``, 6(d)); preemption
-(6(f)): a lane parks only for ``state.suspended``.
+credits into the ring's bank words (6(f), so the bank stays 0);
+preemption (6(f)): a lane parks only for ``state.suspended``.
 
 Knobs: ``VTPU_FASTLANE`` (client: ``1`` asks for a lane; broker: ``0``
 serves none), ``VTPU_FASTLANE_RING`` (entries), ``VTPU_FASTLANE_ARENA_MB``
@@ -281,6 +287,9 @@ class BrokerLane:
         self.unmetered = 0
         self.device_us = 0.0
         self.billed_us = 0.0
+        # The card's per-slot device time at the last harvest: the SLO
+        # blame window of the next batch.
+        self.busy_snap: Optional[tuple] = None
 
     def tx_view(self) -> Optional[memoryview]:
         return memoryview(self.tx_file[1]) if self.tx_file else None
@@ -735,6 +744,7 @@ class FastlaneHub:
         st = [EXEC_OK] * n
         ac = [0] * n
         est = [float(d.cost_us) for d in descs]
+        subs = [int(d.t_sub_ns) for d in descs]
         routes = lane.routes
         tx = lane.tx_view() if any(d.arg_len for d in descs) else None
         ready = _Ready()
@@ -781,9 +791,11 @@ class FastlaneHub:
         if ok:
             with self.mu:
                 lane.unmetered += 1
+            items = [(e, sub) for e, sub, s_ in zip(est, subs, st)
+                     if s_ == EXEC_OK]
             self.meters_put(chip, (lane, ok, ok_est, counts,
                                    ev0 if cuda else None,
-                                   ev1 if cuda else None, wall_us))
+                                   ev1 if cuda else None, wall_us, items))
         # The counters move before the completions publish, so a client
         # that has its reply reads them moved.
         lane.errors += errors
@@ -813,8 +825,9 @@ def meter_batch(hub: FastlaneHub, chip, rec) -> None:
     """Bill one lane batch: its device time from its two events (the wall
     time of its dispatch on the CPU), charged to the bucket by
     ``bill_us`` against what the client pre-debited, and learned by its
-    routes and the tenant's cost EMA."""
-    lane, n, est, counts, ev0, ev1, wall_us = rec
+    routes and the tenant's cost EMA; then the SLO plane's rows (the
+    module docstring)."""
+    lane, n, est, counts, ev0, ev1, wall_us, items = rec
     t = lane.tenant
     try:
         if ev1 is not None:
@@ -847,10 +860,40 @@ def meter_batch(hub: FastlaneHub, chip, rec) -> None:
             prev = t.cost_ema.get(route.exe_key, route.cost_us)
             t.cost_ema[route.exe_key] = 0.7 * prev + 0.3 * min(
                 route.meas_us, prev * 4.0)
+        plane = getattr(state, "slo", None)
+        if plane is not None and plane.enabled and items:
+            _harvest_slo(plane, chip, lane, busy, est, items)
     finally:
         with hub.mu:
             lane.unmetered = max(lane.unmetered - 1, 0)
             hub.mu.notify_all()
+
+
+def _harvest_slo(plane, chip, lane: BrokerLane, busy: float, est: float,
+                 items) -> None:
+    """One lane batch into the SLO plane, on the meter's thread: a row per
+    item (``stage_batch``'s), total from its submit stamp to now, device
+    its share of ``busy`` by estimate; blame weights from the co-tenants'
+    device time since the lane's last batch."""
+    done_ns = time.time_ns()
+    sched = getattr(chip, "scheduler", None)
+    weights = None
+    if sched is not None:
+        snap = tuple(sched.slo_busy)
+        prev = lane.busy_snap
+        if prev is not None:
+            weights = {}
+            for slot, (b0, b1) in enumerate(zip(prev, snap)):
+                name = sched.slo_names[slot]
+                if b1 - b0 > 0.0 and name:
+                    weights[name] = weights.get(name, 0.0) + (b1 - b0)
+        lane.busy_snap = snap
+    flat: List[float] = []
+    for e, sub in items:
+        dt_enq = max((done_ns - sub) * 1e-9, 0.0)
+        dt_disp = min(busy * (e / max(est, 1.0)) * 1e-6, dt_enq)
+        flat.extend((dt_enq, 0.0, dt_disp, 1))
+    plane.stage_batch({lane.tenant.name: flat}, weights, len(items))
 
 
 class ClientLane:

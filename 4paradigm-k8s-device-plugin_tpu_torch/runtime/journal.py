@@ -4,7 +4,7 @@ The port of ``vtpu.runtime.journal``, whole.  A frame is byte-identical
 to ``vtpu``'s for the same record, so either package's ``load_state``
 reads the other's log, and ``_apply_record`` replays every op ``vtpu``
 writes, those of modules the port has not taken yet (``credit``,
-``suspend``, ``slo``, ``migrate``) too.
+``migrate``) too.
 
 The broker (``runtime/server.py``) keeps per-tenant HBM ledgers, cost
 EMAs, the card's calibration and the tenant bindings in its process
@@ -153,7 +153,7 @@ def _apply_record(state: Dict[str, Any], rec: Dict[str, Any]) -> None:
         if t is not None:
             t.pop("suspended", None)
     elif op == "slo":
-        # vtpu's SLO plane state (its runtime/slo.py export_state): the
+        # The SLO plane's state (runtime/slo.py export_state): the
         # newest record wins whole — sketches are cumulative, so
         # replaying an older one over a newer would rewind counters.
         t = tenants.get(rec.get("name"))
@@ -219,10 +219,11 @@ class Journal:
         # Checked BEFORE every write, so a fenced (stale) primary can
         # never journal — and therefore never ack — a state change.
         self.fence: Optional[Callable[[], None]] = None
-        # Replication tap (vtpu's ReplicationHub; the port's streaming
-        # replication is ROADMAP Queue 1 item 6(d), so nothing sets it
-        # yet): fed the raw framed bytes of every DURABLE append, in log
-        # order, under self.mu (the hub only queues: no I/O, no locks).
+        # Replication tap (runtime/replication.py ReplicationHub, set by
+        # REPL_SYNC when a standby subscribes): fed the raw framed bytes
+        # of every DURABLE append, in log order, under self.mu, and each
+        # new blob's content (put_blob, feed_blob); the hub only queues:
+        # no I/O, no locks.
         self.repl_tap: Optional[Any] = None
         self._last_snapshot_ts: Optional[float] = None
         try:

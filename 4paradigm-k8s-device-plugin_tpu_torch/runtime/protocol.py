@@ -15,9 +15,9 @@ The verbs, their tables and the header fields are ``vtpu``'s, so a
 ``vtpu``'s, the fastlane's too: the HELLO's ``fastlane`` and its reply's
 lane, FASTBIND, a PUT's ``arena_off``, a GET's ``arena`` and the feeds of
 an execute; the arena fds follow the HELLO reply as SCM_RIGHTS on a
-one-byte message.  The verbs whose modules are not ported yet (SLO answers
-disabled; MIGRATE*, REPL_SYNC refuse) keep their names here: they are part
-of the wire.  A dtype
+one-byte message.  The verbs whose modules are not ported yet (MIGRATE,
+MIGRATE_OUT and MIGRATE_IN refuse) keep their names here: they are part of
+the wire.  A dtype
 crosses as its name (``utils.dtypes``), bf16 as ``"bfloat16"``.
 """
 
@@ -387,6 +387,25 @@ class ProtocolError(RuntimeError):
 def send_msg(sock: socket.socket, msg: Dict[str, Any]) -> None:
     payload = msgpack.packb(msg, use_bin_type=True)
     sock.sendall(_LEN.pack(len(payload)) + payload)
+
+
+def send_msg_tail(sock: socket.socket, msg: Dict[str, Any], key: str,
+                  data) -> None:
+    """``send_msg(sock, {**msg, key: data})``, the same bytes on the wire,
+    without copying ``data``: the map is packed with ``key`` last and
+    empty, that empty bin's header is swapped for ``data``'s, and
+    ``data`` goes out as its own iovec.  A gigabyte blob then costs the
+    sender no packing under the GIL."""
+    head = msgpack.packb({**msg, key: b""}, use_bin_type=True)
+    n = len(data)
+    if n < 1 << 8:
+        bin_hdr = b"\xc4" + n.to_bytes(1, "big")
+    elif n < 1 << 16:
+        bin_hdr = b"\xc5" + n.to_bytes(2, "big")
+    else:
+        bin_hdr = b"\xc6" + n.to_bytes(4, "big")
+    body = head[:-2] + bin_hdr  # the empty bin packs as c4 00
+    send_frames(sock, [_LEN.pack(len(body) + n) + body, data])
 
 
 # Gather writes batch at most this many iovecs per sendmsg (IOV_MAX is

@@ -113,12 +113,32 @@ batch is billed its device time from CUDA events.  SUSPEND parks the
 ring's gate, DRAIN and HANDOVER park every gate while dispatch pauses,
 RESIZE parks it for a pass, teardown and a second connection close it.
 
-Not here yet, each refused with the ROADMAP item that holds it: the SLO
-plane (SLO answers ``enabled: false``), migration and replication
-(MIGRATE*, REPL_SYNC, ``--cluster``; of ``replication.py`` only the
-journal's ``Fence`` is here).  Also left out of this core: burst credits,
-preemption, overload shedding, host spill of an oversubscribed tenant, PUT
-dedup and grants over several cards.
+**The SLO plane** (``runtime/slo.py``, on unless ``VTPU_SLO=0``): the
+metering threads feed each retired item's queue, bucket and device phases
+and the co-tenants' device time during its wait (the blame substrate,
+``DeviceScheduler.slo_busy``); HELLO seeds the tenant's objective
+(``slo_target_us``/``slo_floor_steps``), RESIZE re-derives a default one,
+teardown forgets the row, and the journal carries periodic ``slo`` records
+and the snapshot's rows, so a successor resumes attainment history.  With
+tracing off a batch's device window is split among its items by what
+billing charged each (``slo.split_batch_window``).  The bind-free ``SLO``
+verb answers a tenant connection with its own row and the admin socket
+with every row, the blame matrix and the fairness report.
+
+**Hot standby** (``runtime/replication.py``): a journaled broker streams
+its journal to standbys over the admin socket (REPL_SYNC); a standby that
+takes over fences this broker's epoch and starts through ``make_server``
+seeded with the state it already applied (``preloaded_state``): no
+journal re-read, no replay.
+
+Not here yet, each refused with the ROADMAP item that holds it: migration
+and the federation (MIGRATE, MIGRATE_OUT, MIGRATE_IN, ``--cluster``;
+6(d)(ii)).  Also left out of this core: burst credits, preemption,
+overload shedding, host spill of an oversubscribed tenant, PUT dedup and
+grants over several cards.
+
+Lock order: ``slo.mu`` (the plane's) is a strict leaf, taken with no
+broker lock held, and the plane never calls out.
 
 Run: python -m vtpu_torch.runtime.server --socket /tmp/rt.sock \\
         --hbm-limit 8Gi --core-limit 50 [--journal-dir DIR] [--device cpu]
@@ -157,6 +177,7 @@ from . import fastlane as fastlane_mod
 from . import faults
 from . import protocol as P
 from . import replication as repl_mod
+from . import slo as slo_mod
 from . import timers as timers_mod
 from . import trace as tracing
 from .journal import Journal, JournalCorrupt
@@ -188,10 +209,9 @@ RATE_LEASE_US = min(int(os.environ.get("VTPU_RATE_LEASE_US", "20000") or 0),
 # The sub-items of ROADMAP.md Queue 1 item 6 that hold what this broker
 # refuses.
 _DEFERRED = {
-    P.MIGRATE: "6(d), migration and replication",
-    P.MIGRATE_OUT: "6(d), migration and replication",
-    P.MIGRATE_IN: "6(d), migration and replication",
-    P.REPL_SYNC: "6(d), migration and replication",
+    P.MIGRATE: "6(d)(ii), migration and the federation",
+    P.MIGRATE_OUT: "6(d)(ii), migration and the federation",
+    P.MIGRATE_IN: "6(d)(ii), migration and the federation",
 }
 
 
@@ -869,13 +889,15 @@ class WorkItem:
     pipelined step may name an earlier step's output.  ``t_enq`` (its
     submit), ``t_bucket0`` (its first wait on the token bucket at the
     queue's head), ``bucket_wait_us`` and the client's trace stamp
-    (``trace_id``, ``trace_ts``) feed its span."""
+    (``trace_id``, ``trace_ts``) feed its span and its SLO row;
+    ``slo_busy0`` is the card's per-slot device time at its enqueue (the
+    blame window's start)."""
 
     __slots__ = ("tenant", "session", "exe", "key", "arg_ids", "out_ids",
                  "steps", "carry", "metered", "est_us", "first_run",
                  "free_ids", "feeds", "batch", "batch_idx", "t_enq",
                  "t_enq_wall", "t_bucket0", "bucket_wait_us", "trace_id",
-                 "trace_ts")
+                 "trace_ts", "slo_busy0")
 
     def __init__(self, tenant, session, exe, key, arg_ids, out_ids,
                  steps=1, carry=(), free_ids=()):
@@ -904,6 +926,7 @@ class WorkItem:
         self.bucket_wait_us = 0.0
         self.trace_id: Optional[str] = None
         self.trace_ts: Optional[float] = None
+        self.slo_busy0: Optional[tuple] = None
 
 
 class _ItemError(Exception):
@@ -966,6 +989,15 @@ class DeviceScheduler:
         self._pool_us = 0.0   # unbilled device time (metering loop only)
         self._prev_obs = 0.0  # last completion observation (metering)
         self.queued_est_us = 0.0
+        # The SLO plane's blame substrate: device time metered to each
+        # tenant slot of this card, and the slot's tenant.  Written by the
+        # metering thread only; read unlocked at enqueue (a torn read
+        # skews one request's blame split, never enforcement).
+        self.slo_busy = [0.0] * MAX_TENANTS
+        self.slo_names: List[Optional[str]] = [None] * MAX_TENANTS
+        # Items that failed before the card, for the plane: the dispatcher
+        # appends, the metering thread folds them in.
+        self._slo_errors: collections.deque = collections.deque()
         self._stop = False
         self._dispatcher = threading.Thread(
             target=self._dispatch_loop, daemon=True,
@@ -982,10 +1014,13 @@ class DeviceScheduler:
     def submit_many(self, items) -> None:
         """Enqueue items under one lock acquisition and one wake."""
         now_m, now_w = time.monotonic(), time.time()
+        # One snapshot per submit: the blame window opens at the enqueue.
+        snap = tuple(self.slo_busy) if self.state.slo.enabled else None
         with self.mu:
             for item in items:
                 item.t_enq = now_m
                 item.t_enq_wall = now_w
+                item.slo_busy0 = snap
                 name = item.tenant.name
                 if name not in self.queues:
                     self.queues[name] = collections.deque()
@@ -1236,8 +1271,10 @@ class DeviceScheduler:
             flush_tenant_journal(self.state, t)
             item.session.complete_execute(item, metas, e, 0.0)
             now = time.monotonic()
-            self._record_span(item, t0, now, 0.0,
-                              error=f"{type(e).__name__}: {e}")
+            err = f"{type(e).__name__}: {e}"
+            self._record_span(item, t0, now, 0.0, error=err)
+            if self.state.slo.enabled:
+                self._slo_errors.append((item, t0, now))
             self._retire_many((item,))
             return None
         # The drops above (freed ids, an output replacing a PUT id) are
@@ -1278,6 +1315,8 @@ class DeviceScheduler:
         order), capped by estimated device time so the oldest item of a
         long batch is not held back by the newest."""
         while not self._stop:
+            if self._slo_errors:
+                self._slo_record_errors()
             try:
                 first = self._completion_q.get(timeout=0.5)
             except queue.Empty:
@@ -1333,6 +1372,7 @@ class DeviceScheduler:
         journal = self.state.journal
         traced = self.state.flight.enabled
         ema_recs = []
+        busys = []
         for item, t0, _outs, ev in batch:
             t = item.tenant
             prev_ema = t.cost_ema.get(item.key, 5000.0)
@@ -1356,6 +1396,7 @@ class DeviceScheduler:
                 if learn_scale is not None:
                     per_step = item.est_us * learn_scale / item.steps
             region.busy_add(t.index, int(busy_us))
+            busys.append(busy_us)
             if item.metered:
                 region.rate_adjust(t.index, int(fastlane_mod.bill_us(
                     busy_us, item.est_us, item.steps, min_cost)
@@ -1371,14 +1412,8 @@ class DeviceScheduler:
                                  "key": item.key,
                                  "ema": t.cost_ema[item.key],
                                  "execs": t.executions})
-            if traced:
-                # The item's own completion, from its event's distance
-                # to the batch's last (both timed while tracing).
-                t_ready = t_obs
-                if ev is not None and ev is not event:
-                    t_ready -= max(ev.elapsed_time(event), 0.0) / 1e3
-                self._record_span(item, t0, t_ready, busy_us,
-                                  solo=len(batch) == 1)
+        if traced or self.state.slo.enabled:
+            self._retire_phases(batch, busys, event, t_obs, traced)
         if ema_recs:
             try:
                 journal.append_many(ema_recs)
@@ -1389,7 +1424,90 @@ class DeviceScheduler:
                          len(ema_recs), e)
         self._retire_many([item for item, _, _, _ in batch])
 
-    # -- tracing (runtime/trace.py) --
+    # -- the SLO plane (runtime/slo.py) and tracing (runtime/trace.py) --
+
+    def _retire_phases(self, batch, busys, event, t_obs: float,
+                       traced: bool) -> None:
+        """Each retired item's ready time and phases, into the SLO plane
+        and, while tracing, a span.  Tracing gives each item its own
+        event, read against the batch's last; otherwise the batch's window
+        from its first dispatch to ``t_obs`` is split among its items by
+        what billing charged each (``slo.split_batch_window``)."""
+        plane = self.state.slo
+        if traced:
+            readies = []
+            for _item, _t0, _outs, ev in batch:
+                t_ready = t_obs
+                if ev is not None and ev is not event:
+                    t_ready -= max(ev.elapsed_time(event), 0.0) / 1e3
+                readies.append(t_ready)
+        else:
+            readies = slo_mod.split_batch_window(batch[0][1], t_obs, busys)
+        stage: Dict[str, list] = {}
+        if plane.enabled:
+            # This thread is the only writer of the blame substrate.
+            for (item, _t0, _outs, _ev), busy_us in zip(batch, busys):
+                t = item.tenant
+                self.slo_busy[t.index] += busy_us
+                self.slo_names[t.index] = t.name
+        solo = len(batch) == 1
+        for (item, t0, _outs, _ev), busy_us, t_ready in zip(batch, busys,
+                                                            readies):
+            if plane.enabled:
+                ph = slo_mod.item_phases(item.t_enq, t0, t_ready,
+                                         item.bucket_wait_us)
+                if item.trace_id is None:
+                    rows = stage.get(item.tenant.name)
+                    if rows is None:
+                        rows = stage[item.tenant.name] = []
+                    rows.extend(slo_mod.stage_row(*ph, item.steps))
+                else:
+                    # A traced request's id becomes an exemplar: the
+                    # exact path.
+                    self._slo_record(item, ph, ok=True)
+            if traced:
+                self._record_span(item, t0, t_ready, busy_us, solo=solo)
+        if stage:
+            # The batch's blame denominators, once: co-tenants' device
+            # time since the batch head's enqueue (each victim's own entry
+            # is left out at ingest).
+            plane.stage_batch(stage,
+                              self._slo_weights(batch[0][0].slo_busy0),
+                              sum(len(r) for r in stage.values()) // 4)
+
+    def _slo_weights(self, base: Optional[tuple],
+                     exclude: Optional[str] = None
+                     ) -> Optional[Dict[str, float]]:
+        """Device time each co-tenant slot gained since ``base``."""
+        if base is None:
+            return None
+        weights: Optional[Dict[str, float]] = None
+        for i, name in enumerate(self.slo_names):
+            if name is None or name == exclude:
+                continue
+            d = self.slo_busy[i] - (base[i] if i < len(base) else 0.0)
+            if d > 0.0:
+                if weights is None:
+                    weights = {}
+                weights[name] = d
+        return weights
+
+    def _slo_record(self, item: WorkItem, ph, ok: bool) -> None:
+        queue_us, bucket_us, device_us, total_us = ph
+        self.state.slo.record(
+            item.tenant.name, queue_us=queue_us, bucket_us=bucket_us,
+            device_us=device_us, total_us=total_us, steps=item.steps,
+            ok=ok, wait_weights=self._slo_weights(item.slo_busy0,
+                                                  item.tenant.name),
+            trace_id=item.trace_id, wall_ts=item.t_enq_wall)
+
+    def _slo_record_errors(self) -> None:
+        """Items that failed before the card, each a violation, folded in
+        on the metering thread like every other feed of the plane."""
+        while self._slo_errors:
+            item, t_disp, t_err = self._slo_errors.popleft()
+            self._slo_record(item, slo_mod.item_phases(
+                item.t_enq, t_disp, t_err, item.bucket_wait_us), ok=False)
 
     def _record_span(self, item: WorkItem, t_disp: float, t_ready: float,
                      busy_us: float, error: Optional[str] = None,
@@ -1397,17 +1515,14 @@ class DeviceScheduler:
         """A flight-recorder span of one retired item, with tracing on.
         Its phases are wall-clock deltas that partition the item's time
         in the broker (queue + bucket + device == total by
-        construction); the metered ``busy_us`` rides along as the
-        billing view."""
+        construction, ``slo.item_phases``); the metered ``busy_us`` rides
+        along as the billing view."""
         fl = self.state.flight
         if not fl.enabled:
             return
         t = item.tenant
-        total_us = max(t_ready - item.t_enq, 0.0) * 1e6
-        bucket_us = min(item.bucket_wait_us, total_us)
-        queue_us = min(max((t_disp - item.t_enq) * 1e6 - bucket_us, 0.0),
-                       total_us - bucket_us)
-        device_us = total_us - bucket_us - queue_us
+        queue_us, bucket_us, device_us, total_us = slo_mod.item_phases(
+            item.t_enq, t_disp, t_ready, item.bucket_wait_us)
         span: Dict[str, Any] = {
             "ts": item.t_enq_wall,
             "tenant": t.name, "chip": self.chip.index,
@@ -1604,12 +1719,16 @@ class ChipState:
 
 class RuntimeState:
     """Shared across sessions: the cards, the tenants, the program
-    cache, the journal and what it recovered, the flight recorder."""
+    cache, the journal and what it recovered, the flight recorder, the
+    SLO plane and the replication hub.  ``preloaded_state`` is a
+    standby's already-applied journal state: recovery starts from it
+    instead of reading the journal."""
 
     def __init__(self, region_path: str, hbm_limit: int, core_limit: int,
                  min_exec_cost_us: int = 0,
                  work_conserving: Optional[bool] = None,
-                 device: str = "cuda", journal: Optional[Journal] = None):
+                 device: str = "cuda", journal: Optional[Journal] = None,
+                 preloaded_state: Optional[dict] = None):
         self.journal = journal
         self.prev_epoch: Optional[str] = None
         # name -> (Tenant, resume deadline): tenants recovered from the
@@ -1627,6 +1746,10 @@ class RuntimeState:
             "arrays_dropped": 0,
             "corrupt_recoveries": 0,
             "resume_s_last": 0.0,
+            # The last resume's split: arrays back on the card, programs
+            # vetted and loaded.
+            "restore_s_last": 0.0,
+            "load_s_last": 0.0,
         }
         self.chip_latency_hints: Dict[int, float] = {}
         self.draining = False
@@ -1637,10 +1760,18 @@ class RuntimeState:
         # The one timer thread of the keepers (make_server installs it).
         self.timers: Optional[timers_mod.TimerWheel] = None
         self.flight = tracing.FlightRecorder()
+        # The SLO plane, on unless VTPU_SLO=0 (runtime/slo.py).
+        self.slo = slo_mod.SloPlane()
+        # The standbys following this broker's journal (REPL_SYNC); one
+        # None check per append until one subscribes.
+        self.replication = repl_mod.ReplicationHub(self)
         # The previous instance's claim-watchdog record, if any.
         self.last_wedge: Optional[dict] = None
         self._journal_state = None
-        if journal is not None:
+        if journal is not None and preloaded_state is not None:
+            # A standby's takeover: it applied the stream already.
+            self._journal_state = preloaded_state
+        elif journal is not None:
             try:
                 self._journal_state = journal.load_state()
             except JournalCorrupt as e:
@@ -1824,6 +1955,10 @@ class RuntimeState:
                     c.region.mem_release(slot, nb)
                 self.recovery["tenants_dropped_dead"] += 1
                 continue
+            # Attainment history resumes with the tenant (the periodic
+            # ``slo`` records and the snapshot's rows).
+            if rec.get("slo"):
+                self.slo.restore(name, rec["slo"])
             self.recovered[name] = (t, now + self.resume_grace)
             self.recovery["tenants_recovered"] += 1
         log.info("journal: recovered %d tenant(s) from epoch %s (%d dropped "
@@ -1865,6 +2000,7 @@ class RuntimeState:
         like one off the wire).  An array whose blob is gone or short
         releases its ledger."""
         chip = t.chip
+        t0 = time.monotonic()
         for aid, am in list(t.blob_meta.items()):
             blob = self.journal.get_blob(am.get("sha", ""))
             expect = int(am.get("nbytes", 0))
@@ -1887,6 +2023,10 @@ class RuntimeState:
                 continue
             with t.mu:
                 t.arrays[aid] = dev
+        if chip.stream is not None:
+            chip.stream.synchronize()
+        t1 = time.monotonic()
+        self.recovery["restore_s_last"] = round(t1 - t0, 3)
         for eid, sha in list(t.exe_shas.items()):
             blob = self.journal.get_blob(sha)
             if blob is None:
@@ -1896,6 +2036,7 @@ class RuntimeState:
             except Exception as e:  # noqa: BLE001 - best effort
                 log.warn("journal: cannot restore program %s of %r: %s",
                          eid, t.name, e)
+        self.recovery["load_s_last"] = round(time.monotonic() - t1, 3)
 
     def _release_recovered(self, t: Tenant, counter: str) -> Optional[dict]:
         """Drop a parked recovered tenant: its re-applied ledger comes
@@ -1923,6 +2064,26 @@ class RuntimeState:
             rec = self._release_recovered(t, "tenants_dropped_expired")
             if rec is not None:
                 self.journal.append(rec)
+        if self.journal is not None and self.slo.journal_due():
+            # Periodic SLO records: a successor resumes each tenant's
+            # attainment history within a period.  An item in flight at a
+            # crash is in neither the journaled sketch nor the successor's
+            # (it records only once retired), so nothing counts twice.
+            with self.mu:
+                names = set(self.tenants) | set(self.recovered)
+            recs = []
+            for name in sorted(names):
+                st = self.slo.export_state(name)
+                if st is not None:
+                    recs.append({"op": "slo", "name": name, "state": st})
+            if recs:
+                try:
+                    self.journal.append_many(recs)
+                except OSError as e:
+                    # History, not enforcement: a lost period costs the
+                    # successor a few seconds of it.
+                    log.warn("journal: dropping %d slo record(s) (%s)",
+                             len(recs), e)
         if self.journal is not None and self.journal.snapshot_due():
             self.journal.write_snapshot(self._snapshot_dict)
 
@@ -1952,6 +2113,11 @@ class RuntimeState:
             }
             if name in self.suspended:
                 tenants[name]["suspended"] = {"auto": False}
+            # The SLO rows ride the snapshot, so compaction never ages
+            # attainment history out of the journal.
+            slo_state = self.slo.export_state(name)
+            if slo_state is not None:
+                tenants[name]["slo"] = slo_state
         with self.chips_mu:
             chips = {str(i): c.latency_us for i, c in self.chips.items()
                      if c.latency_us}
@@ -1974,6 +2140,18 @@ class RuntimeState:
         if self.journal is not None:
             out.update(self.journal.stats())
         return out
+
+    def slo_report(self, tenant: Optional[str] = None,
+                   admin: bool = False) -> Dict[str, Any]:
+        """The SLO verb's reply: the plane's report with the live quota
+        shares the fairness report holds attainment against."""
+        with self.mu:
+            tenants = list(self.tenants.items())
+        quota = {name: int(t.chip.region.device_stats(t.index).core_limit_pct)
+                 for name, t in tenants}
+        rep = self.slo.report(tenant=tenant, admin=admin, quota_pcts=quota)
+        rep["ok"] = True
+        return rep
 
     def timer_stats(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {"enabled": self.timers is not None}
@@ -2097,6 +2275,9 @@ class RuntimeState:
             t.chip.scheduler.forget_tenant(t.name)
             self.flight.forget(t.name)
             self.suspended.discard(t.name)
+        # A reused name is a new tenant: its attainment history starts at
+        # zero (slo.mu is a leaf, taken with no broker lock held).
+        self.slo.forget(t.name)
         # The lane's files go with the tenant (file I/O, outside state.mu).
         self.fastlane.close_lane(t.name)
         if self.journal is not None:
@@ -2150,6 +2331,8 @@ def resize_tenant(t: Tenant, hbm_limit: Optional[int] = None,
         # A lease pre-debited at the old share does not outlive it.
         t.lease_release()
         t.lease_revoked = True
+    # The default objective follows the share (an explicit one stays).
+    t.chip.scheduler.state.slo.set_quota_pct(t.name, new_core)
     return {"op": "resize", "name": t.name, "hbm": new_hbm,
             "core": new_core}
 
@@ -2161,7 +2344,8 @@ def _stats_reply(state: RuntimeState) -> Dict[str, Any]:
             "fastlane": state.fastlane.stats(),
             "journal": state.journal_stats(),
             "pool": dict(state.pool_stats),
-            "timers": state.timer_stats()}
+            "timers": state.timer_stats(),
+            "replication": state.replication.status()}
 
 
 def _trace_reply(state: RuntimeState, msg) -> Dict[str, Any]:
@@ -2173,11 +2357,6 @@ def _trace_reply(state: RuntimeState, msg) -> Dict[str, Any]:
             "tenants": state.flight.snapshot(
                 tenant=str(t_arg) if t_arg else None,
                 limit=int(msg.get("limit", 0) or 0))}
-
-
-def _disabled_reply() -> Dict[str, Any]:
-    """SLO: ``vtpu``'s answer with the SLO plane off."""
-    return {"ok": True, "enabled": False, "tenants": {}}
 
 
 class TenantSession(socketserver.BaseRequestHandler):
@@ -2267,6 +2446,14 @@ class TenantSession(socketserver.BaseRequestHandler):
         # still releases the connection this HELLO took.
         tenant_box[0] = tenant
         self._journal_bind(tenant, msg)
+        # The SLO objective: the grant's target and floor when HELLO
+        # carries them (the first HELLO's win), else from the share.
+        self.state.slo.ensure_tenant(
+            tenant.name,
+            quota_pct=int(tenant.chip.region.device_stats(
+                tenant.index).core_limit_pct),
+            target_us=msg.get("slo_target_us"),
+            floor_steps_s=msg.get("slo_floor_steps"))
         # The fastlane: a lane when the client asks and the tenant has one
         # connection (the ring is single-producer); a second connection of
         # a laned tenant sends the first back to the socket.  A resumed
@@ -2342,11 +2529,23 @@ class TenantSession(socketserver.BaseRequestHandler):
                 if kind == P.STATS and tenant is None:
                     self._send(_stats_reply(self.state))
                     continue
-                if kind in (P.TRACE, P.SLO):
+                if kind == P.TRACE:
                     if tenant is not None:
                         self._drain()
-                    self._send(_trace_reply(self.state, msg)
-                               if kind == P.TRACE else _disabled_reply())
+                    self._send(_trace_reply(self.state, msg))
+                    continue
+                if kind == P.SLO:
+                    # Bind-free and scoped: a bound connection gets its own
+                    # row whatever it names; an unbound probe the row it
+                    # names (metricsd's scrape) or the enabled flag alone.
+                    # The matrix is the admin socket's.
+                    if tenant is not None:
+                        self._drain()
+                        scope = tenant.name
+                    else:
+                        t_arg = msg.get("tenant")
+                        scope = str(t_arg) if t_arg else None
+                    self._send(self.state.slo_report(tenant=scope))
                     continue
                 if tenant is None:
                     self._send_err("NO_HELLO", "hello required")
@@ -2798,8 +2997,10 @@ def collect_stats(state: RuntimeState) -> Dict[str, Dict[str, Any]]:
 
 class AdminSession(socketserver.BaseRequestHandler):
     """The host-side admin socket (``<socket>.admin``, never mounted into
-    a container): STATS, TRACE, SUSPEND, RESUME, RESIZE, DRAIN, HANDOVER,
-    SHUTDOWN, with SLO disabled; the broker's uid and root only."""
+    a container): STATS, TRACE, SLO (every row, the blame matrix, the
+    fairness report), SUSPEND, RESUME, RESIZE, DRAIN, HANDOVER, SHUTDOWN
+    and REPL_SYNC (a standby's stream, or its status); the broker's uid
+    and root only."""
 
     state: RuntimeState  # set by make_server
 
@@ -2904,7 +3105,19 @@ class AdminSession(socketserver.BaseRequestHandler):
                 elif kind == P.TRACE:
                     P.send_msg(self.request, _trace_reply(self.state, msg))
                 elif kind == P.SLO:
-                    P.send_msg(self.request, _disabled_reply())
+                    P.send_msg(self.request,
+                               self.state.slo_report(admin=True))
+                elif kind == P.REPL_SYNC:
+                    if msg.get("status"):
+                        P.send_msg(self.request, {
+                            "ok": True,
+                            "replication": self.state.replication.status()})
+                    else:
+                        # The connection becomes the standby's stream until
+                        # either side dies.
+                        self.state.replication.serve_follower(self.request,
+                                                              msg)
+                        return
                 elif kind in (P.DRAIN, P.HANDOVER):
                     # Quiesce and a final snapshot; HANDOVER then exits,
                     # and the successor recovers the journal.
@@ -2962,15 +3175,6 @@ class _Server(socketserver.ThreadingUnixStreamServer):
         super().server_close()
 
 
-def refuse_deferred_env(env=os.environ) -> None:
-    """Raise for an environment that asks the broker for a module not
-    ported yet: the SLO plane (``VTPU_SLO=1``; ``vtpu`` runs it unless
-    ``VTPU_SLO=0``)."""
-    if env.get("VTPU_SLO", "0") not in ("", "0"):
-        raise RuntimeError(deferred("VTPU_SLO (the SLO plane)",
-                                    "6(d), the SLO plane"))
-
-
 def _journal_tick(state: RuntimeState) -> None:
     if not state._keeper_stop.is_set():  # noqa: SLF001 - its owner
         state.journal_tick()
@@ -2989,14 +3193,18 @@ def make_server(socket_path: str, hbm_limit: int, core_limit: int,
                 min_exec_cost_us: int = 0,
                 work_conserving: Optional[bool] = None,
                 device: str = "cuda",
-                journal_dir: Optional[str] = None) -> _Server:
+                journal_dir: Optional[str] = None,
+                preloaded_state: Optional[dict] = None,
+                fence: Optional[repl_mod.Fence] = None) -> _Server:
     """The tenant socket at ``socket_path`` and the admin socket beside
     it, not yet serving (call ``serve_forever``).  ``device`` is "cuda"
     (every card; raises when there is none), "cuda:<i>" or "cpu".
     ``journal_dir`` (else ``VTPU_JOURNAL_DIR``) turns on the journal and
     recovers what it holds before the socket binds; an unusable
-    directory is logged and the broker runs without one."""
-    refuse_deferred_env()
+    directory is logged and the broker runs without one.  A standby's
+    takeover passes the state it applied (``preloaded_state``) and the
+    fence it already claimed; the cards are claimed here, as at any
+    boot."""
     if os.path.exists(socket_path):
         os.unlink(socket_path)
     os.makedirs(os.path.dirname(socket_path) or ".", exist_ok=True)
@@ -3019,11 +3227,15 @@ def make_server(socket_path: str, hbm_limit: int, core_limit: int,
         # The epoch fence: a generation claimed at boot and checked before
         # every append, so a superseded instance can never journal (and
         # so never ack).
-        fence = repl_mod.Fence(socket_path + ".fence")
-        fence.claim()
+        if fence is None:
+            fence = repl_mod.Fence(socket_path + ".fence")
+            fence.claim()
         jr.fence = fence.check
     state = RuntimeState(rpath, hbm_limit, core_limit, min_exec_cost_us,
-                         work_conserving, device=device, journal=jr)
+                         work_conserving, device=device, journal=jr,
+                         preloaded_state=preloaded_state)
+    if fence is not None:
+        state.replication.fence = fence
     # One timer thread for the keepers, on harmonic grids.
     state.timers = timers_mod.TimerWheel()
     if jr is not None:
@@ -3073,10 +3285,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "VTPU_JOURNAL_DIR; unset: no recovery)")
     p.add_argument("--cluster", default=None,
                    help="refused: " + deferred("the federation",
-                                               "6(d), the cluster"))
+                                               "6(d)(ii), the federation"))
     ns = p.parse_args(argv)
     if ns.cluster:
-        p.error("--cluster " + deferred("the federation", "6(d), the cluster"))
+        p.error("--cluster " + deferred("the federation",
+                                        "6(d)(ii), the federation"))
     hbm = envspec.parse_quantity(ns.hbm_limit) if ns.hbm_limit != "0" else 0
     srv = make_server(ns.socket, hbm, ns.core_limit, ns.region,
                       ns.min_exec_cost_us,

@@ -13,9 +13,11 @@ pod's region.  It never takes a slot in a region.
   vtpu-smi metricsd [HOST:PORT]              # what a pod's metricsd says
   vtpu-smi trace [TENANT] --broker SOCK [--dump chrome.json]
   vtpu-smi leases [--lease-file PATH]        # who holds the node's cards
+  vtpu-smi top --broker SOCK [--once]        # the SLO plane, per tenant
   vtpu-smi --broker SOCK --broker-stats      # and --suspend/--resume T,
                                              # --resize T --hbm Q --core P,
-                                             # --drain, --handover, --shutdown
+                                             # --drain, --handover, --shutdown,
+                                             # --repl-status
 
 ``trace`` reads the broker's flight recorder over its main socket
 (bind-free, like STATS); with ``--dump`` it merges the native event rings
@@ -23,12 +25,15 @@ pod's region.  It never takes a slot in a region.
 by ``--region``/``--scan`` into the Chrome trace.  ``--broker-stats``
 prints the STATS reply: a row per tenant, with its fastlane block (ring
 and socket steps, depth, gate, arenas, metered device time) when it has a
-lane, and the lanes' rollup.  The admin verbs go to ``SOCK.admin``.  What
-waits for its module is refused with a message that names its ROADMAP
-Queue 1 item, never silently absent: ``top`` and ``cluster``, and the
-admin flags ``--migrate``, ``--device``, ``--migrate-to``, ``--chips`` and
-``--repl-status``, for 6(d); the analyzers (``analyze``, ``mc``, ``wmm``,
-``dmc``, ``chaos``) for item 7.
+lane, and the lanes' rollup.  ``top`` joins the admin socket's SLO reply
+(every tenant's phases, attainment, burn and top blamer, the fairness
+report) with its STATS; ``--repl-status`` prints the replication block
+(role, followers and their lag, the fence generation, takeovers).  The
+admin verbs go to ``SOCK.admin``.  What waits for its module is refused
+with a message that names its ROADMAP Queue 1 item, never silently absent:
+``cluster`` and the admin flags ``--migrate``, ``--device``,
+``--migrate-to`` and ``--chips`` for 6(d)(ii); the analyzers (``analyze``,
+``mc``, ``wmm``, ``dmc``, ``chaos``) for item 7.
 
 Run as: python -m vtpu_torch.tools.vtpu_smi
 """
@@ -49,11 +54,10 @@ TITLE = "| vtpu-smi — vGPU quota monitor"
 
 # Sub-commands of vtpu's that are not ported yet: name -> ROADMAP Queue 1
 # item.
-REFUSED_COMMANDS = {"top": "6(d)", "cluster": "6(d)", "analyze": "7",
-                    "mc": "7", "wmm": "7", "dmc": "7", "chaos": "7"}
-# The broker's admin flags that wait for migration and replication.
+REFUSED_COMMANDS = {"cluster": "6(d)(ii)", "analyze": "7", "mc": "7",
+                    "wmm": "7", "dmc": "7", "chaos": "7"}
+# The broker's admin flags that wait for migration.
 REFUSED_FLAGS = ("--migrate", "--device", "--migrate-to", "--chips")
-REFUSED_SWITCHES = ("--repl-status",)
 
 
 def refusal(what: str, item: str) -> str:
@@ -260,6 +264,141 @@ def cmd_leases(ns) -> int:
     return 1 if any(d.get("stale") for d in out) else 0
 
 
+def _top_rows(slo_resp: dict, stats_resp: dict) -> List[Dict]:
+    """One SLO reply joined with one STATS reply into renderable rows."""
+    rows = []
+    stats = (stats_resp or {}).get("tenants") or {}
+    for name, body in sorted((slo_resp.get("tenants") or {}).items()):
+        ph = body.get("phases", {})
+        wins = body.get("windows", {})
+        short = wins[min(wins, key=float)] if wins else {}
+        fair = ((slo_resp.get("fairness") or {}).get("tenants")
+                or {}).get(name, {})
+        st = stats.get(name, {})
+        rows.append({
+            "tenant": name,
+            "steps_per_s": short.get("steps_per_s", 0.0),
+            "p50_queue_us": ph.get("queue", {}).get("p50_us", 0.0),
+            "p99_queue_us": ph.get("queue", {}).get("p99_us", 0.0),
+            "p50_e2e_us": ph.get("e2e", {}).get("p50_us", 0.0),
+            "p99_e2e_us": ph.get("e2e", {}).get("p99_us", 0.0),
+            "p99_device_us": ph.get("device", {}).get("p99_us", 0.0),
+            "attainment_pct": short.get("attainment_pct", 100.0),
+            "burn_rate": short.get("burn_rate", 0.0),
+            "burn_alert": body.get("burn_alert", False),
+            "fair_ratio": fair.get("ratio"),
+            "top_blamer": body.get("top_blamer"),
+            "hbm_used": st.get("used_bytes", 0),
+            "suspended": st.get("suspended", False),
+            # vtpu's burst credits, preemption and shedding (6(f)) read 0
+            # here until they are ported.
+            "credit_ms": round(st.get("credit_us", 0) / 1e3, 1),
+            "preempted": st.get("preempted", False),
+            "preemptions": st.get("preemptions", 0),
+            "shed": st.get("shed_total", 0),
+            "fastlane": st.get("fastlane"),
+        })
+    rows.sort(key=lambda r: -r["steps_per_s"])
+    return rows
+
+
+def render_top(rows: List[Dict], enabled: bool = True,
+               jain: Optional[float] = None) -> str:
+    """The per-tenant SLO table (``vtpu``'s columns)."""
+    hdr = (f"{'TENANT':<18} {'STEPS/S':>8} {'P50 E2E':>9} "
+           f"{'P99 E2E':>9} {'P99 QUE':>9} {'P99 DEV':>9} "
+           f"{'ATTAIN%':>8} {'BURN':>6} {'FAIR':>5} {'CREDIT':>8} "
+           f"{'SHED':>5} {'PLANE':>6} {'TOP BLAMER':<16}")
+    lines = ["vtpu-smi top — per-tenant SLO / fairness / blame"
+             + (f"  (jain={jain})" if jain is not None else "")
+             + ("" if enabled else "  [SLO PLANE DISABLED: VTPU_SLO=0]"),
+             hdr, "-" * len(hdr)]
+    for r in rows:
+        # '!' burn alert, 's' admin-suspended, 'p' preemption-parked.
+        flag = "!" if r["burn_alert"] else (
+            "s" if r["suspended"] else (
+                "p" if r.get("preempted") else " "))
+        fair = (f"{r['fair_ratio']:.2f}" if r["fair_ratio"] is not None
+                else "-")
+        credit = f"{r.get('credit_ms', 0):.0f}ms"
+        # The data plane: 'ring' with an open lane, 'held' while its gate
+        # is parked, 'sock' with no lane or a closed one.
+        fl = r.get("fastlane")
+        plane = "sock"
+        if fl:
+            g = fl.get("gate", 2)
+            if g == 0:
+                plane = "ring"
+            elif g == 1:
+                plane = "held"
+        lines.append(
+            f"{r['tenant'][:17]:<17}{flag} {r['steps_per_s']:>8.1f} "
+            f"{r['p50_e2e_us']:>9.0f} {r['p99_e2e_us']:>9.0f} "
+            f"{r['p99_queue_us']:>9.0f} {r['p99_device_us']:>9.0f} "
+            f"{r['attainment_pct']:>8.2f} {r['burn_rate']:>6.1f} "
+            f"{fair:>5} {credit:>8} {r.get('shed', 0):>5} "
+            f"{plane:>6} {(r['top_blamer'] or '-')[:16]:<16}")
+    if not rows:
+        lines.append("(no tenants with SLO history)")
+    return "\n".join(lines)
+
+
+def cmd_top(ns) -> int:
+    """``vtpu-smi top``: the per-tenant table (steps/s, p50/p99 by phase,
+    attainment, burn rate, the top noisy neighbour) from the broker's SLO
+    plane over the admin socket.  ``--once`` prints one snapshot;
+    ``--fake`` renders a synthetic plane (no broker)."""
+    import time as timemod
+
+    from ..runtime import protocol as P
+    from ..runtime import slo as slo_lib
+    if ns.fake:
+        rep = slo_lib.fairness_smoke(n_tenants=8, seed=3)
+        plane = slo_lib.SloPlane(enabled=True, windows=(30.0,),
+                                 budget=0.01)
+        for i in range(8):
+            name = f"fake-{i}"
+            plane.ensure_tenant(name, quota_pct=50)
+            for _ in range(64):
+                plane.record(name, queue_us=100.0 * (i + 1),
+                             bucket_us=10.0, device_us=500.0,
+                             total_us=110.0 * (i + 1) + 500.0,
+                             wait_weights={f"fake-{(i + 1) % 8}": 1.0})
+        plane_rep = plane.report(
+            admin=True, quota_pcts={f"fake-{i}": 50 for i in range(8)})
+        rows = _top_rows(plane_rep, {})
+        if ns.json:
+            print(json.dumps({"smoke": rep, "rows": rows}, indent=2))
+        else:
+            print(render_top(rows, jain=plane_rep["fairness"]["jain"]))
+        return 0 if rep["ok"] else 1
+    if not ns.broker:
+        print("top needs --broker <main socket> (or --fake)",
+              file=sys.stderr)
+        return 2
+    path = ns.broker + ".admin"
+    while True:
+        slo_resp = request(path, {"kind": P.SLO})
+        if not slo_resp.get("ok"):
+            print(json.dumps(slo_resp, indent=2))
+            return 1
+        stats_resp = request(path, {"kind": P.STATS})
+        rows = _top_rows(slo_resp, stats_resp)
+        if ns.json:
+            print(json.dumps({"rows": rows,
+                              "fairness": slo_resp.get("fairness")},
+                             indent=2))
+        else:
+            if not ns.once:
+                print("\033[2J\033[H", end="")
+            print(render_top(
+                rows, enabled=slo_resp.get("enabled", False),
+                jain=(slo_resp.get("fairness") or {}).get("jain")))
+        if ns.once:
+            return 0
+        timemod.sleep(max(ns.interval, 0.2))
+
+
 def cmd_admin(ns) -> int:
     """The broker's admin verbs over ``<broker>.admin``; prints the
     reply, exit 0 when it is ok."""
@@ -275,6 +414,8 @@ def cmd_admin(ns) -> int:
             msg["hbm_limit"] = envspec.parse_quantity(ns.hbm)
         if ns.core is not None:
             msg["core_limit"] = int(ns.core)
+    elif ns.repl_status:
+        msg = {"kind": P.REPL_SYNC, "status": True}
     elif ns.broker_stats:
         msg = {"kind": P.STATS}
     elif ns.drain or ns.handover:
@@ -282,8 +423,9 @@ def cmd_admin(ns) -> int:
     elif ns.shutdown:
         msg = {"kind": P.SHUTDOWN}
     else:
-        print("--broker needs --suspend/--resume/--resize/--broker-stats/"
-              "--drain/--handover/--shutdown", file=sys.stderr)
+        print("--broker needs --suspend/--resume/--resize/--repl-status/"
+              "--broker-stats/--drain/--handover/--shutdown",
+              file=sys.stderr)
         return 2
     resp = request(path, msg, timeout=90.0)
     print(json.dumps(resp, indent=2))
@@ -363,12 +505,14 @@ def cmd_metricsd(ns) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="vtpu-smi")
     ap.add_argument("cmd", nargs="?", default=None,
-                    choices=("metricsd", "trace", "leases",
+                    choices=("metricsd", "trace", "leases", "top",
                              *REFUSED_COMMANDS),
                     help="metricsd: what a pod's metricsd serves it; trace: "
                          "the broker's flight recorder; leases: who holds "
-                         "the node's cards; the others are vtpu's broker "
-                         "and analyzer commands, not ported yet")
+                         "the node's cards; top: the broker's SLO plane, "
+                         "per tenant (--broker; --once, --fake); the others "
+                         "are vtpu's federation and analyzer commands, not "
+                         "ported yet")
     ap.add_argument("cmd_arg", nargs="?", default=None,
                     help="HOST:PORT for `metricsd`, TENANT for `trace`")
     ap.add_argument("--dump", default=None, metavar="FILE",
@@ -384,6 +528,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--region", action="append", default=[],
                     help="explicit region file (repeatable)")
     ap.add_argument("--json", action="store_true")
+    ap.add_argument("--once", action="store_true",
+                    help="with `top`: print one snapshot and exit")
+    ap.add_argument("--interval", type=float, default=2.0,
+                    help="with `top`: the refresh period, seconds")
+    ap.add_argument("--fake", action="store_true",
+                    help="with `top`: a synthetic SLO plane (no broker)")
     ap.add_argument("--sweep-host", action="store_true",
                     help="reclaim slots of dead host pids (node mode only)")
     ap.add_argument("--broker", default=None, metavar="SOCKET",
@@ -402,6 +552,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "unmetered)")
     ap.add_argument("--broker-stats", action="store_true",
                     help="per-tenant broker stats, with the journal's")
+    ap.add_argument("--repl-status", action="store_true",
+                    help="the replication block: role, followers and their "
+                         "lag, the fence generation, takeovers")
     ap.add_argument("--drain", action="store_true",
                     help="refuse new tenants, quiesce and commit a final "
                          "journal snapshot")
@@ -412,8 +565,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="stop the broker without the drain")
     for flag in REFUSED_FLAGS:
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
-    for flag in REFUSED_SWITCHES:
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     # A refused sub-command is refused whatever its own options are.
     ns, rest = ap.parse_known_args(argv)
     if ns.cmd in REFUSED_COMMANDS:
@@ -422,11 +573,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     if rest:
         ap.error("unrecognized arguments: " + " ".join(rest))
-    given = [f for f in REFUSED_FLAGS + REFUSED_SWITCHES
+    given = [f for f in REFUSED_FLAGS
              if getattr(ns, f[2:].replace("-", "_"))]
     if given:
-        print(refusal(", ".join(given) + " (migration and replication)",
-                      "6(d)"),
+        print(refusal(", ".join(given) + " (migration)", "6(d)(ii)"),
               file=sys.stderr)
         return 2
     if ns.cmd == "metricsd":
@@ -435,11 +585,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_trace(ns, ns.region or find_regions(ns.scan))
     if ns.cmd == "leases":
         return cmd_leases(ns)
+    if ns.cmd == "top":
+        return cmd_top(ns)
     admin = (ns.suspend or ns.resume or ns.resize or ns.broker_stats
-             or ns.drain or ns.handover or ns.shutdown)
+             or ns.repl_status or ns.drain or ns.handover or ns.shutdown)
     if admin and not ns.broker:
-        ap.error("--suspend/--resume/--resize/--broker-stats/--drain/"
-                 "--handover/--shutdown need --broker <main socket>")
+        ap.error("--suspend/--resume/--resize/--repl-status/--broker-stats/"
+                 "--drain/--handover/--shutdown need --broker <main socket>")
     if ns.broker:
         return cmd_admin(ns)
 

@@ -191,10 +191,10 @@ ENV_FLAGS = {
     "KUBERNETES_SERVICE_HOST": "k8s",
     "KUBERNETES_SERVICE_PORT": "k8s",
     # The broker (runtime/): its wire, its scheduler and rate leases, its
-    # journal (journal.py, replication.py's fence), its timers, its
-    # client and the fastlane (fastlane.py: VTPU_FASTLANE asks a client's
-    # lane and, at 0, turns the broker's off); VTPU_SLO is read to be
-    # refused until the SLO plane is ported (ROADMAP Queue 1 item 6(d)).
+    # journal (journal.py), replication and the standby (replication.py),
+    # its timers, its client, the fastlane (fastlane.py: VTPU_FASTLANE
+    # asks a client's lane and, at 0, turns the broker's off) and the SLO
+    # plane (slo.py: on unless VTPU_SLO=0).
     "VTPU_PUT_CHUNK_BYTES": "broker",
     "VTPU_RECV_POOL_MB": "broker",
     "VTPU_MAX_QUEUE_US": "broker",
@@ -206,6 +206,9 @@ ENV_FLAGS = {
     "VTPU_RESUME_GRACE_S": "broker",
     "VTPU_CLAIM_WATCHDOG_S": "broker",
     "VTPU_REPL_FENCE": "broker",
+    "VTPU_REPL_BUFFER_MB": "broker",
+    "VTPU_REPL_HB_S": "broker",
+    "VTPU_REPL_CONFIRM_S": "broker",
     "VTPU_TIMER_COALESCE_MS": "broker",
     "VTPU_FASTLANE": "broker",
     "VTPU_FASTLANE_RING": "broker",
@@ -214,6 +217,15 @@ ENV_FLAGS = {
     "VTPU_FASTLANE_BATCH": "broker",
     "VTPU_ARENA_FEED": "broker",
     "VTPU_SLO": "broker",
+    "VTPU_SLO_ALPHA": "broker",
+    "VTPU_SLO_BUCKETS": "broker",
+    "VTPU_SLO_WINDOWS": "broker",
+    "VTPU_SLO_BUDGET": "broker",
+    "VTPU_SLO_BURN_ALERT": "broker",
+    "VTPU_SLO_JOURNAL_S": "broker",
+    # The grant's SLO objective, relayed by the client in HELLO.
+    "VTPU_SLO_TARGET_US": "contract",
+    "VTPU_SLO_FLOOR_STEPS": "contract",
     "VTPU_EXEC_BATCH": "broker",
     "VTPU_TENANT": "broker",
     "VTPU_RPC_TIMEOUT_S": "broker",

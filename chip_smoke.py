@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the port's native libraries from the sources in this checkout,
-then runs fourteen phases, each of which asserts; any failure exits
+then runs fifteen phases, each of which asserts; any failure exits
 non-zero and prints no result line.
 
 1. Device: the card's name and power limit, the versions (msgpack and
@@ -115,8 +115,8 @@ non-zero and prints no result line.
    route; the logits of the first step within ``LOGITS_REL_L2`` of
    in-process ``entry.serve`` with the same weights, and the tokens after
    steps 4 and 8 equal on at least 99.9% of positions.  12b: Llama-3-8B
-   at full width, depth cut to 4 layers (14a serves all 32 through the
-   broker), b=2, s=512, from the broker's init program under a 6 GiB cap
+   at full width, depth cut to 4 layers (phase 3 serves all 32 in
+   process), b=2, s=512, from the broker's init program under a 6 GiB cap
    given in HELLO: 4 launches a step, a second init refused with
    RESOURCE_EXHAUSTED and the ledger unmoved, 0 after the tenant exits.  12c: the bench config at 50%
    shares given in HELLO, one tenant alone and two at once for 8 s each:
@@ -160,13 +160,14 @@ non-zero and prints no result line.
 
 14. The fastlane (``vtpu_torch.runtime.fastlane``): tenants as children
    with ``CUDA_VISIBLE_DEVICES`` empty and ``VTPU_FASTLANE=1``, brokers in
-   this process but 14f's.  14a: Llama-3-8B at full width from the
-   broker's init program (20 GiB, core 100 given in HELLO), b=2, s=512, 16
-   steps of one unchained execute each over the lane, then a second
-   connection of the tenant closes its lane and 16 more go over the socket
-   on the same weights: at least 15 ring steps (the first primes over the
-   socket), the tokens of both equal at every position, 1,024 sm90
-   launches and no WMMA, the ledger 0 after exit.  14b: the bench config
+   this process but 14f's.  14a: Llama-3-8B at full width, depth cut to 2
+   layers, from the broker's init program (20 GiB, core 100 given in
+   HELLO), b=2, s=512, 16 steps of one unchained execute each over the
+   lane, then a second connection of the tenant closes its lane and 16 more
+   go over the socket on the same weights: at least 15 ring steps (the
+   first primes over the socket), the tokens of both equal at every
+   position, one sm90 launch a layer a step and no WMMA, the ledger 0 after
+   exit.  14b: the bench config
    at b=4, s=512, weights drawn from a seed and PUT, 8 steps over the lane
    and 8 over the socket: logits (a forward over the ring) within
    ``LOGITS_REL_L2`` of in-process ``entry.serve`` and tokens equal on at
@@ -189,11 +190,52 @@ non-zero and prints no result line.
    chip_smoke.phase_fastlane(torch, tempfile.mkdtemp(), {'serve':
    float('nan')})"``.
 
+15. The SLO plane and the hot standby (``vtpu_torch.runtime.slo``,
+   ``.replication``).  15a: a broker in this process with a journal,
+   tracing off (so each batch's device window is split among its items by
+   billing) and strict shares; two bench tenants (b=4, s=512, the init
+   program, chains of 4, children without a card) at 50% for 6 s, then
+   one alone, unmetered, in 1 s windows with the plane on and off in turns
+   (steps/s printed).  Each batch's ready times rise from its first
+   dispatch to its observed completion and cut that window in the shares
+   billing charged its items (within 1 ns), and those charges sum to the
+   tenant's booked ``busy_us``; every staged item's queue, bucket and
+   device add up to its total within 0.5 us; each tenant's blame row adds
+   up to its measured wait; a tenant's SLO reply holds its own row only
+   (naming its neighbour too), the admin reply both and the matrix;
+   ``vtpu-smi top``, the exporter's ``--broker`` histogram (one a tenant)
+   and metricsd's SLO metrics agree with the verb; a HANDOVER's successor
+   restores each row's count before the tenants return, and their resume
+   adds nothing; the broker's K1 launches are all sm90, one a layer a step
+   its tenants ran.  15b: 13a's cell cut to depth 1 (Llama-3-8B's width,
+   2.54 GB PUT and journaled, b=2, s=512, chains of 4, 8 GiB and core 100
+   in HELLO) under a primary broker process and a standby process
+   (``python -m vtpu_torch.runtime.replication``, the default 64 MB
+   stream queue) that has bootstrapped and follows the stream; the set-up
+   and the tenant's PUT run while 15a's tenants warm up.  After 8 steps,
+   with the third chain in flight, the primary is killed (kill -9); the
+   standby takes over with the epoch fenced (its ledger equals the
+   journaled PUTs' bytes before the tenant returns); the tenant's tokens
+   after step 16 equal in-process serving's on at least 99.9% of
+   positions with no exception, the successor's K1 launches are all sm90,
+   one a layer a step it ran, the standby never initialised CUDA before
+   the takeover, and the ledger reads 0 after the tenant exits.  A second
+   pair without tenants shows the stale primary: stopped (SIGSTOP) with an
+   admin connection open, taken over, resumed (SIGCONT), it refuses a
+   journaled admin verb (fenced).  Printed: the blackout from the kill
+   beside 13a's respawn, the takeover's split (confirm, fence, claim,
+   restore, program load, first chain) after kill -9 and after SIGSTOP,
+   the stream's bytes and lag.  Phase 15 alone: ``python3 -c "import
+   chip_smoke, tempfile, torch; chip_smoke.phase_device(torch);
+   chip_smoke.phase_standby(torch, tempfile.mkdtemp(), {'serve':
+   float('nan')}, {'bound_s': float('nan'), 'resume_s': float('nan')})"``.
+
 The line before the last is one JSON object with each kernel's numbers
 (``launches`` from phase 3, ``brokered_launches`` from phase 12,
 ``phase13_launches`` from the phase 13 brokers that exit cleanly,
-``phase14_launches`` from phase 14's brokers); the last is ``{"ok": true,
-"device": {...}}``.
+``phase14_launches`` from phase 14's brokers, ``phase15_launches`` from
+15a's broker and 15b's successor, not in-process serving); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -204,6 +246,7 @@ import multiprocessing as mp
 import os
 import queue
 import re
+import socket as socketmod
 import statistics
 import subprocess
 import sys
@@ -2734,11 +2777,13 @@ P13_CARD = {"device": "cuda", "cfg": "llama4", "bench": "bench",
             "shape": [2, 512], "bench_shape": [4, 512], "cap": P13_CAP}
 
 
-def p13_config(name):
+def p13_config(name, layers=None):
+    """A named configuration with the flash path; ``layers`` cuts the
+    Llama-3-8B one's depth (P13_LAYERS by default)."""
     from vtpu_torch.models import transformer as tr
 
     cfg = {"llama4": lambda: dataclasses.replace(
-        tr.TransformerConfig.llama3_8b(), n_layers=P13_LAYERS),
+        tr.TransformerConfig.llama3_8b(), n_layers=layers or P13_LAYERS),
         "bench": tr.TransformerConfig.bench,
         "tiny": tr.TransformerConfig.tiny}[name]()
     return dataclasses.replace(cfg, use_flash=True)
@@ -2774,11 +2819,12 @@ def dir_bytes(path):
 
 
 class Broker:
-    """One broker process (``python -m vtpu_torch.runtime.server``) with
-    a journal and tracing on; its stderr goes to a file."""
+    """One broker process (``python -m vtpu_torch.runtime.server``, or the
+    standby's ``vtpu_torch.runtime.replication``) with a journal and
+    tracing on; its stderr goes to a file."""
 
     def __init__(self, name, sock, jdir, tmp, s13, lease, faults=None,
-                 args=()):
+                 args=(), module="vtpu_torch.runtime.server"):
         self.name, self.sock = name, sock
         env = dict(os.environ, VTPU_JOURNAL_DIR=jdir, VTPU_TRACE="1",
                    VTPU_TRACE_RING="1024", VTPU_LOG_LEVEL="3",
@@ -2792,7 +2838,7 @@ class Broker:
         self.t0 = time.monotonic()
         with open(self.errpath, "w") as err:
             self.p = subprocess.Popen(
-                [sys.executable, "-m", "vtpu_torch.runtime.server",
+                [sys.executable, "-m", module,
                  "--socket", sock, "--device", s13["device"], *args],
                 env=env, stdout=subprocess.DEVNULL, stderr=err, cwd=REPO)
 
@@ -2879,20 +2925,25 @@ def p13_child(torch, go, sock, role, s13):
           "the tenant was started with a card visible")
     home = os.path.dirname(go)
     if role == "crash":
-        cfg, shape = p13_config(s13["cfg"]), s13["shape"]
-        c = RuntimeClient(sock, tenant="p13", hbm_limit=s13["cap"],
-                          core_limit=100)
+        cfg, shape = p13_config(s13["cfg"], s13.get("layers")), s13["shape"]
         weights = torch.load(os.path.join(s13["wdir"], "p13_weights.pt"),
                              weights_only=True)
+        while s13.get("start") and not os.path.exists(s13["start"]):
+            time.sleep(0.005)
+        c = RuntimeClient(sock, tenant="p13", hbm_limit=s13["cap"],
+                          core_limit=100)
+
+        kill_at = s13.get("kill_at", P13_KILL_AT)
 
         def on_chain(n):
-            if n == P13_KILL_AT and not os.path.exists(go):
+            if n == kill_at and not os.path.exists(go):
                 print("KILLPOINT", flush=True)
                 while not os.path.exists(go):
                     time.sleep(0.005)
 
         out = entry.serve_brokered(
-            c, cfg, *shape, steps=P13_STEPS, weights=weights,
+            c, cfg, *shape, steps=s13.get("steps", P13_STEPS),
+            weights=weights,
             chain=P13_CHAIN, depth=2, prompt=p13_prompt(cfg, shape),
             on_chain=on_chain)
         np.save(os.path.join(home, "p13_tokens.npy"), out["tokens"].numpy())
@@ -3106,6 +3157,9 @@ def phase_durability(torch, tmp, direct, s13=None):
             f"{time.monotonic() - t_phase:.1f} s")
         out["sm90"] = l_c.get("sm90", 0)
         out["wmma"] = l_c.get("wmma", 0)
+        # The respawn's outage after the kill -9, for 15b's takeover: the
+        # successor's time to a bound socket and the resume.
+        out["respawn"] = {"bound_s": bound_b, "resume_s": jc["resume_s_last"]}
 
         # 13b: RESIZE, trace and HANDOVER at the bench config.
         t_b = time.monotonic()
@@ -3228,6 +3282,7 @@ def phase_durability(torch, tmp, direct, s13=None):
 # -- phase 14: the fastlane ----------------------------------------------------
 
 P14_SEED = 14
+P14_LAYERS = 2             # 14a: Llama-3-8B at full width, depth cut to 2
 P14_STEPS = 16             # 14a: unchained steps over each path
 P14_RING_MIN = 15          # 14a: of 16 (the first primes over the socket)
 P14_PAR_STEPS = 8          # 14b
@@ -3242,6 +3297,7 @@ P14_SHARE_BAND = (0.40, 0.60)
 P14_LONE_MIN = 0.85
 P14_CO_CHAIN = 4           # 14f: the co-tenant's chains
 P14_CO_STEPS = 8
+P14_PROBE_WAIT_S = 20.0    # 14f's raw probes: the longest wait after 14a
 # 14f: every index op on the broker's list, sent with out-of-range operands
 # (the raw op is also run on the card alone, in a process of its own, to
 # see which assert there).
@@ -3437,7 +3493,8 @@ def p14_child(torch, go, mode, sock, out_dir):
         return c.stats()[name].get("fastlane") or {}
 
     if mode == "full":
-        cfg = tr.TransformerConfig.llama3_8b()
+        cfg = dataclasses.replace(tr.TransformerConfig.llama3_8b(),
+                                  n_layers=P14_LAYERS)
         c = RuntimeClient(sock, tenant="lane-full", hbm_limit=FULL_CAP,
                           core_limit=100)
         check(c._lane is not None, "14a: no lane negotiated")
@@ -3702,6 +3759,7 @@ def _phase_fastlane(torch, tmp, direct, started):
 
     # 14f's raw probes start now, each alone in its process; they hold
     # the card for a moment and are read at 14f.
+    t_probes, hung = time.monotonic(), {}
     probes = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
                                 "--child", "p14probe", op],
                                stdout=subprocess.PIPE,
@@ -3734,9 +3792,9 @@ def _phase_fastlane(torch, tmp, direct, started):
         reset()
         full, = release("full")
         got = take("full")
-        llama = tr.TransformerConfig.llama3_8b()
-        want = 2 * P14_STEPS * llama.n_layers
-        say(f"14a llama3_8b b=2 s=512, one execute a step: lane "
+        want = 2 * P14_STEPS * P14_LAYERS
+        say(f"14a llama3_8b at depth {P14_LAYERS} b=2 s=512, one execute a "
+            f"step: lane "
             f"{full['lane_rate']:.3f} steps/s, socket {full['sock_rate']:.3f} "
             f"steps/s, phase 3 in process {direct['serve']:.3f}; ms between "
             f"steps (median, largest): lane {gaps(full['lane_gaps'])}, socket "
@@ -3757,6 +3815,24 @@ def _phase_fastlane(torch, tmp, direct, started):
         check(got["sm90"] == want and got["wmma"] == 0,
               f"14a: launches {got} != {want} sm90")
         drained(srv, "14a")
+        # 14f's probes run beside 14a only: a probe whose out-of-range
+        # kernel has not trapped by now shares the card with 14b-14e's
+        # windows (one ran past 300 s after 14a on an H100), so it is killed
+        # and reported as still running.
+        t_w = time.monotonic()
+        for op, pr in zip(P14_PROBES, probes):
+            try:
+                pr.wait(timeout=max(P14_PROBE_WAIT_S
+                                    - (time.monotonic() - t_w), 0.1))
+            except subprocess.TimeoutExpired:
+                pr.kill()
+                pr.wait()
+                hung[op] = time.monotonic() - t_probes
+        say(f"14f's probes: {len(probes) - len(hung)} ended within "
+            f"{time.monotonic() - t_w:.1f} s after 14a; still running "
+            f"and killed: " + (", ".join(f"{k} after {v:.1f} s"
+                                         for k, v in hung.items())
+                               or "none"))
 
         # 14b: parity with in-process serving, bench config.
         t0 = time.monotonic()
@@ -3896,7 +3972,8 @@ def _phase_fastlane(torch, tmp, direct, started):
         out, _ = pr.communicate(timeout=300)
         line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
         raw[op] = (json.loads(line[-1][7:])["raw"] if line
-                   else f"rc {pr.returncode}")
+                   else f"still running after {hung[op]:.1f} s, killed"
+                   if op in hung else f"rc {pr.returncode}")
     say("14f the raw ops on the card with an out-of-range operand: "
         + json.dumps(raw))
     try:
@@ -3941,6 +4018,641 @@ def _phase_fastlane(torch, tmp, direct, started):
     return launches
 
 
+# -- phase 15: the SLO plane and the hot standby ------------------------------
+
+P15_SEED = 15
+P15_CORE = 50              # 15a: each of the pair's share (strict)
+P15_SHARE_S = 6.0          # 15a: the pair's window
+P15_COST_S = 1.0           # 15a: each window of the tenant alone
+P15_TURNS = (True, False, True, False)  # the plane on and off in turns
+P15_PARTITION_US = 0.5     # an item's phases against its total
+P15_SPLIT_S = 1e-9         # a ready time against the billed share's
+P15_LAYERS = 1             # 15b: 13a's cell cut to depth 1
+# 15b's cell is 13a's (Llama-3-8B's width, chains of 4, 8 GiB, the kill
+# after 8 of 16 steps) at depth 1; 15a's tenants are the bench config.
+P15_CARD = dict(P13_CARD, layers=P15_LAYERS, steps=P13_STEPS,
+                kill_at=P13_KILL_AT)
+
+
+def p15_child(torch, go, sock, name, other, s15):
+    """15a's tenant (no card): serves ``s15``'s bench config from the
+    broker's init program at P15_CORE% until ``<go>.stop.<name>`` exists,
+    reads its own SLO row and asks for ``other``'s (it must get its own),
+    prints DONE; once ``<go>.resume`` exists it closes its end of the
+    connection (the broker it knew is gone: handed over in the parent) and
+    reads its row again, which resumes it on the successor."""
+    from vtpu_torch import entry
+    from vtpu_torch.runtime import protocol as P
+    from vtpu_torch.runtime.client import RuntimeClient
+
+    check(os.environ.get("CUDA_VISIBLE_DEVICES") == "",
+          "the tenant was started with a card visible")
+    c = RuntimeClient(sock, tenant=name, core_limit=P15_CORE)
+    stop = f"{go}.stop.{name}"
+
+    def ready():
+        print("READY", flush=True)
+        while not os.path.exists(go):
+            time.sleep(0.005)
+
+    out = entry.serve_brokered(
+        c, s15["bench"], *s15["bench_shape"], init="program", seed=P15_SEED,
+        chain=BROKER_CHAIN, depth=2, seconds=600.0, on_ready=ready,
+        on_chain=lambda n: os.path.exists(stop))
+    own = c.slo()
+    scoped = c._rpc({"kind": P.SLO, "tenant": other})
+    epoch = c.epoch
+    print("DONE", flush=True)
+    while not os.path.exists(go + ".resume"):
+        time.sleep(0.005)
+    c.sock.close()
+    after = c.slo()
+    res = {"steps": out["steps"], "own": own["tenants"],
+           "setup_s": out["setup_s"],
+           "scoped": sorted(scoped.get("tenants") or {}),
+           "scoped_matrix": "matrix" in scoped, "after": after["tenants"],
+           "epochs": [epoch, c.epoch],
+           "cuda_initialized": torch.cuda.is_initialized()}
+    c.close()
+    return res
+
+
+def p15_tenants(tmp, go, sock, names, s15):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               VTPU_RECONNECT_TIMEOUT_S="120", VTPU_RPC_TIMEOUT_S="300",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.pop("VTPU_SLO_TARGET_US", None)
+    out = []
+    for name, other in zip(names, names[::-1]):
+        err = open(os.path.join(tmp, f"p15_{name}.err"), "w+")
+        out.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", "p15", go,
+             sock, name, other, json.dumps(s15)], env=env,
+            stdout=subprocess.PIPE, stderr=err, text=True, cwd=REPO), err))
+    return out
+
+
+def stdout_of(fn, *args):
+    """``fn(*args)``'s return and what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args)
+    return rc, buf.getvalue()
+
+
+def split_faults(batches):
+    """Each batch's split of its device window (tracing off), against the
+    rule: its ready times rise from its first dispatch and end at its
+    observed completion, and each cuts the window in the share billing
+    charged its item.  Returns (batches out of that order, the largest
+    error of a ready time in s, items ready before their own dispatch)."""
+    disorder, worst, early = 0, 0.0, 0
+    for b in batches:
+        r, t_first, t_obs = b["readies"], b["t_first"], b["t_obs"]
+        disorder += not (t_first == b["t0s"][0] and r[-1] == t_obs
+                         and r == sorted(r) and t_first <= r[0])
+        total = sum(max(x, 0.0) for x in b["busys"])
+        acc = 0.0
+        for ready, busy in zip(r, b["busys"]):
+            acc += (max(busy, 0.0) / total if total > 0.0
+                    else 1.0 / len(r))
+            worst = max(worst, abs(ready - (t_first + (t_obs - t_first)
+                                            * min(acc, 1.0))))
+        early += sum(ready < t0 for ready, t0 in zip(r, b["t0s"]))
+    return disorder, worst, early
+
+
+def phase_slo(torch, tmp, s15, meanwhile=None):
+    """15a (module docstring): the SLO plane in a broker in this process,
+    tracing off, strict shares; ``meanwhile()`` runs while the tenants warm
+    up (15b's set-up).  Returns K1's launches in 15a's broker (the
+    in-process serving of ``meanwhile()`` counted apart)."""
+    import threading
+
+    from vtpu_torch.metricsd import backend as mbackend
+    from vtpu_torch.metricsd import server as msrv
+    from vtpu_torch.ops import flash_attention as fa
+    from vtpu_torch.runtime import server as rs
+    from vtpu_torch.runtime import slo as slo_mod
+    from vtpu_torch.tools import metrics_server as tms
+    from vtpu_torch.tools import vtpu_smi as tsmi
+    from vtpu_torch.utils import envspec
+
+    tmp = os.path.join(tmp, "p15a")
+    os.makedirs(tmp)
+    sock, jdir = os.path.join(tmp, "b.sock"), os.path.join(tmp, "j")
+    names = ("p15a", "p15b")
+    fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+    os.environ.pop("VTPU_TRACE", None)
+    os.environ.pop("VTPU_SLO", None)
+    srv = rs.make_server(sock, 0, 0, work_conserving=False, journal_dir=jdir,
+                         device=s15["device"])
+    th = threading.Thread(target=srv.serve_forever, daemon=True,
+                          kwargs={"poll_interval": 0.1})
+    th.start()
+    srv2 = th2 = None
+    rows = []
+    plane = srv.state.slo
+    check(plane.enabled and not srv.state.flight.enabled,
+          "15a wants the plane on (VTPU_SLO's default) and tracing off")
+    stage = plane.stage_batch
+
+    def staged(st, weights, n):
+        rows.append({k: list(v) for k, v in st.items()})
+        return stage(st, weights, n)
+
+    plane.stage_batch = staged
+    # Each batch's split, as the metering thread makes it.
+    batches = []
+    split, retire = slo_mod.split_batch_window, rs.DeviceScheduler.\
+        _retire_phases
+
+    def spy_split(t_first, t_obs, weights):
+        out = split(t_first, t_obs, weights)
+        batches[-1].update(t_first=t_first, t_obs=t_obs, readies=out)
+        return out
+
+    def spy_retire(self, batch, busys, event, t_obs, traced):
+        batches.append({"names": [it.tenant.name for it, *_ in batch],
+                        "t0s": [t0 for _, t0, _, _ in batch],
+                        "busys": list(busys)})
+        return retire(self, batch, busys, event, t_obs, traced)
+
+    slo_mod.split_batch_window = spy_split
+    rs.DeviceScheduler._retire_phases = spy_retire
+    go = os.path.join(tmp, "go")
+    tenants = p15_tenants(tmp, go, sock, names, s15)
+    admin = sock + ".admin"
+
+    def row(name):
+        return rs.collect_stats(srv.state)[name]
+
+    try:
+        t_phase = time.monotonic()
+        if meanwhile is not None:
+            meanwhile()
+        t_meanwhile = time.monotonic() - t_phase
+        for p, err in tenants:
+            tenant_line(p, err, "READY", timeout=300)
+        t_ready = time.monotonic() - t_phase
+        # The tenants have only run their init programs: what K1 counted
+        # so far is the in-process serving of ``meanwhile()``.
+        ref_launches = dict(fa.flash_attention.route_launches)
+        fa.flash_attention.route_launches = dict.fromkeys(fa.ROUTES, 0)
+        open(go, "w").close()
+        time.sleep(1.0)
+        b0 = {n: row(n)["busy_us"] for n in names}
+        t0 = time.monotonic()
+        time.sleep(P15_SHARE_S)
+        b1 = {n: row(n)["busy_us"] for n in names}
+        pair_s = time.monotonic() - t0
+        shares = {n: (b1[n] - b0[n]) / 1e6 / pair_s for n in names}
+        open(f"{go}.stop.p15b", "w").close()
+        tenant_line(*tenants[1], "DONE")
+        booked_b = row("p15b")["busy_us"]  # every batch of p15b metered
+        # The tenant alone, unmetered, with the plane on and off in turns
+        # (VTPU_SLO=0's state: every hot-path check reads ``enabled``).
+        tsmi.request(admin, {"kind": "resize", "tenant": "p15a",
+                             "core_limit": 0})
+        time.sleep(0.5)
+        rates = {True: [], False: []}
+        for on in P15_TURNS:
+            plane.enabled = on
+            time.sleep(0.2)
+            e0, t0 = row("p15a")["executions"], time.monotonic()
+            time.sleep(P15_COST_S)
+            rates[on].append((row("p15a")["executions"] - e0)
+                             / (time.monotonic() - t0))
+        plane.enabled = True
+        open(f"{go}.stop.p15a", "w").close()
+        tenant_line(*tenants[0], "DONE")
+        launches = dict(fa.flash_attention.route_launches)
+        slo_mod.split_batch_window, rs.DeviceScheduler._retire_phases = (
+            split, retire)
+        # Each batch's split by billing, and p15b's charges (every batch of
+        # it retired with the plane on) against what its row booked.
+        disorder, worst_split, early = split_faults(batches)
+        n_split = sum(len(b["names"]) for b in batches)
+        check(batches and not disorder and worst_split <= P15_SPLIT_S,
+              f"{disorder} of {len(batches)} batches' ready times out of "
+              f"order or outside their window; worst ready time "
+              f"{worst_split} s from its billed share")
+        billed_b = [x for b in batches for n_, x in zip(b["names"],
+                                                         b["busys"])
+                    if n_ == "p15b"]
+        check(abs(sum(billed_b) - booked_b) <= len(billed_b),
+              f"p15b's split weights sum to {sum(billed_b)} us, its row "
+              f"booked {booked_b} us")
+        # Every retired item's phases against its total.
+        worst, n_rows = 0.0, {}
+        for st in rows:
+            for name, flat in st.items():
+                q, b, d, tot, _s = slo_mod.SloPlane._phase_cols(flat)
+                worst = max(worst, float(np.abs(q + b + d - tot).max()))
+                n_rows[name] = n_rows.get(name, 0) + len(tot)
+        check(worst <= P15_PARTITION_US,
+              f"an item's phases miss its total by {worst} us")
+        rep = tsmi.request(admin, {"kind": "slo"})
+        check(rep["enabled"] and set(rep["tenants"]) == set(names)
+              and set(rep["matrix"]) == set(names),
+              f"the admin SLO reply lacks a tenant: {sorted(rep['tenants'])}")
+        for name, body in rep["tenants"].items():
+            blamed = sum(body["blame"].values())
+            check(abs(blamed - body["wait_us_total"]) <= 1.0,
+                  f"{name}'s blame row sums to {blamed} us, its wait "
+                  f"{body['wait_us_total']} us")
+        # The views, against the verb.
+        _, out = stdout_of(tsmi.main, ["top", "--once", "--json", "--broker",
+                                       sock])
+        top = {r["tenant"]: r for r in json.loads(out)["rows"]}
+        _, text = stdout_of(tsmi.main, ["top", "--once", "--broker", sock])
+        prom = tms.broker_prometheus(
+            tms.MetricsState(None, [], brokers=[sock]).collect_brokers())
+        views = {}
+        for name, body in rep["tenants"].items():
+            ph = body["phases"]["e2e"]
+            check(top[name]["p99_e2e_us"] == ph["p99_us"]
+                  and top[name]["p50_e2e_us"] == ph["p50_us"],
+                  f"vtpu-smi top's {name} row {top[name]} disagrees with "
+                  f"the SLO verb's {ph}")
+            check(name in text, f"vtpu-smi top shows no {name}")
+            got = re.findall(r'vtpu_tenant_latency_us_count\{broker="b.sock",'
+                             rf'tenant="{name}",chip="0"\}} (\d+)', prom)
+            buckets = re.findall(r'vtpu_tenant_latency_us_bucket\{broker='
+                                 rf'"b.sock",tenant="{name}",', prom)
+            check(got == [str(ph["count"])] and len(buckets) > 1,
+                  f"the exporter's {name} histogram ({got}, {len(buckets)} "
+                  f"buckets) disagrees with the verb's count {ph['count']}")
+            be = mbackend.RegionBackend(
+                region_path=os.path.join(tmp, "none"),
+                quota=envspec.quota_from_env({}), broker_socket=sock,
+                tenant=name)
+            server, _, port = msrv.make_server(0, be)
+            try:
+                m = tsmi.metricsd_view(f"127.0.0.1:{port}")["metrics"]
+            finally:
+                server.stop(grace=0)
+            p99 = m[msrv.METRIC_SLO_P99]
+            check(p99 and all(v == ph["p99_us"] for v in p99.values()),
+                  f"metricsd's {name} e2e p99 {p99} != the verb's "
+                  f"{ph['p99_us']}")
+            views[name] = {"count": ph["count"], "p50_us": ph["p50_us"],
+                           "p99_us": ph["p99_us"],
+                           "attainment": m[msrv.METRIC_SLO_ATTAINMENT]}
+        # HANDOVER: the snapshot carries the rows; a successor restores
+        # them before the tenants return, and the resume adds nothing.
+        pre = {n: b["phases"]["e2e"]["count"]
+               for n, b in rep["tenants"].items()}
+        t_h = time.monotonic()
+        r = tsmi.request(admin, {"kind": "handover"}, timeout=90.0)
+        check(r.get("ok"), f"HANDOVER: {r}")
+        th.join(timeout=30)
+        srv.server_close()
+        srv2 = rs.make_server(sock, 0, 0, work_conserving=False,
+                              journal_dir=jdir, device=s15["device"])
+        th2 = threading.Thread(target=srv2.serve_forever, daemon=True,
+                               kwargs={"poll_interval": 0.1})
+        th2.start()
+        rep2 = srv2.state.slo_report(admin=True)["tenants"]
+        restored = {n: (b["phases"]["e2e"]["count"], b["restored_count"])
+                    for n, b in rep2.items()}
+        check(restored == {n: (c, c) for n, c in pre.items()},
+              f"the successor restored {restored}, the broker had {pre}")
+        open(go + ".resume", "w").close()
+        res = [tenant_result(p, err, timeout=300) for p, err in tenants]
+        handover_s = time.monotonic() - t_h
+        for name, got in zip(names, res):
+            check(got["scoped"] == [name] and not got["scoped_matrix"],
+                  f"{name}'s SLO reply shows {got['scoped']}")
+            check(set(got["own"]) == {name}
+                  and got["own"][name]["phases"]
+                  == rep["tenants"][name]["phases"],
+                  f"{name}'s own row disagrees with the admin reply")
+            after = got["after"][name]["phases"]["e2e"]["count"]
+            check(got["epochs"][0] != got["epochs"][1] and after == pre[name],
+                  f"{name} after the resume: {after} requests (before "
+                  f"{pre[name]}), epochs {got['epochs']}")
+            check(not got["cuda_initialized"], "a tenant initialised CUDA")
+        steps = sum(r["steps"] for r in res)
+        if s15["device"] != "cpu":
+            want = steps * p13_config(s15["bench"]).n_layers
+            check(launches.get("sm90") == want and not launches.get("wmma"),
+                  f"15a's broker launched K1 {launches}, its tenants ran "
+                  f"{steps} steps: want {want} sm90")
+        wait_for(lambda: broker_ledger(srv2.state) == 0 or None,
+                 "15a's ledger to read 0", 30)
+        say(f"15a the plane, {s15['bench']} b={s15['bench_shape'][0]} "
+            f"s={s15['bench_shape'][1]} in chains of {BROKER_CHAIN}, two "
+            f"tenants at {P15_CORE}% strict for {pair_s:.1f} s: booked "
+            + ", ".join(f"{n} {shares[n]:.3f}" for n in names)
+            + f" of the window; {sum(n_rows.values())} items staged "
+            f"({json.dumps(n_rows)}), worst partition error {worst:.3g} us; "
+            f"blame rows " + ", ".join(
+                f"{n} {json.dumps(b['blame'])} of {b['wait_us_total']} us"
+                for n, b in rep["tenants"].items())
+            + f"; Jain {rep['fairness']['jain']}")
+        say(f"15a {len(batches)} batches of {n_split} items split by "
+            f"billing: worst ready time {worst_split:.3g} s from its share, "
+            f"{early} items ready (by the split) before their own dispatch; "
+            f"p15b billed {sum(billed_b):.1f} us in {len(billed_b)} items, "
+            f"booked {booked_b} us")
+        say(f"15a views agree with the verb: {json.dumps(views)}")
+        on = [round(x, 3) for x in rates[True]]
+        off = [round(x, 3) for x in rates[False]]
+        say(f"15a p15a alone, unmetered, {P15_COST_S:.0f} s windows in turns: "
+            f"plane on {on} steps/s (mean {statistics.mean(on):.3f}), off "
+            f"{off} (mean {statistics.mean(off):.3f})")
+        say(f"15a HANDOVER: restored {json.dumps(restored)} before the "
+            f"tenants returned, the same after their resume; handover and "
+            f"resume {handover_s:.1f} s; tenants ready after {t_ready:.1f} "
+            f"s (15b's set-up {t_meanwhile:.1f} s of it; each tenant's init "
+            f"program and compile: " + ", ".join(
+                f"{n} {r['setup_s']['weights']:.1f} s and "
+                f"{r['setup_s']['compile']:.1f} s" for n, r in zip(names, res))
+            + f"); K1 launches in the broker {json.dumps(launches)} for "
+            f"{steps} steps (in-process serving before: "
+            f"{json.dumps(ref_launches)}); 15a took "
+            f"{time.monotonic() - t_phase:.1f} s")
+    finally:
+        slo_mod.split_batch_window, rs.DeviceScheduler._retire_phases = (
+            split, retire)
+        for p, err in tenants:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+        for s_, t_ in ((srv2, th2), (srv, th)):
+            if s_ is not None:
+                s_.shutdown()
+                s_.server_close()
+                t_.join(timeout=10)
+    return launches
+
+
+def repl_followers(sock):
+    """The primary's followers (REPL_SYNC's status on its admin socket)."""
+    from vtpu_torch.tools.vtpu_smi import request
+
+    return request(sock + ".admin", {"kind": "repl_sync", "status": True},
+                   5.0)["replication"]["followers"]
+
+
+def successor_stats(sock, old_epoch):
+    """STATS of a broker on ``sock`` whose epoch is not ``old_epoch``, or
+    None (nothing answers, or the old broker still does)."""
+    from vtpu_torch.tools.vtpu_smi import request
+
+    try:
+        st = request(sock, {"kind": "stats"}, 1.0)
+    except OSError:
+        return None
+    return st if st["journal"]["epoch"] != old_epoch else None
+
+
+def prepare_failover(torch, tmp, s15, fo):
+    """15b's set-up, which runs while 15a's tenants warm up, into ``fo``:
+    the weights drawn on the card and saved; a primary broker and a
+    standby process, and a second pair without tenants for the stale
+    primary; in-process serving's tokens; the tenant, which connects once
+    the first primary's standby follows the stream, then PUTs, compiles
+    and serves to its kill point.  ``fo["procs"]`` and ``fo["tenant"]``
+    are the caller's to stop, whatever happens here."""
+    from vtpu_torch import entry
+    from vtpu_torch.models import transformer as tr
+
+    s13 = dict(s15)
+    fo.update(s13=s13, card=s13["device"] != "cpu", t0=time.monotonic())
+    cfg = p13_config(s13["cfg"], s13.get("layers"))
+    shape = tuple(s13["shape"])
+    fo["cfg"], fo["wbytes"] = cfg, tr.state_bytes(cfg)
+    tmp = fo["tmp"] = os.path.join(tmp, "p15b")
+    os.makedirs(tmp)
+    # The primaries' journals and the standbys' mirrors, side by side.
+    home, fo["where"] = journal_home(tmp, 2 * fo["wbytes"])
+    fo["home"] = s13["wdir"] = home
+    drawn, tree = drawn_weights(torch, cfg, P13_SEED, s13["device"])
+    torch.save(tree, os.path.join(home, "p13_weights.pt"))
+    del drawn
+    fo["sock"] = os.path.join(tmp, "p15.sock")
+    fo["fsock"] = os.path.join(tmp, "p15f.sock")
+    pairs = (("primary", "standby", fo["sock"]),
+             ("fprimary", "fstandby", fo["fsock"]))
+    for prim, _, sock in pairs:
+        fo[prim] = Broker(f"p15-{prim}", sock, os.path.join(home, prim),
+                          tmp, s13, os.path.join(tmp, f"lease-{prim}.json"))
+        fo["procs"].append(fo[prim])
+    # The tenant starts too; it connects once its start file exists.
+    fo["go"] = os.path.join(tmp, "p15b.go")
+    s13["start"] = fo["go"] + ".start"
+    fo["tenant"] = p13_tenant(tmp, fo["go"], fo["sock"], "crash", s13)
+    # In-process serving's tokens while the processes start.
+    fo["ref"] = entry.serve(cfg, *shape, steps=s13["steps"],
+                            device=s13["device"], weights=tree,
+                            prompt=p13_prompt(cfg, shape))["tokens"]
+    del tree
+    gc.collect()
+    if fo["card"]:
+        torch.cuda.empty_cache()
+    fo["prep_s"] = time.monotonic() - fo["t0"]
+    # Each standby starts once its primary is bound: one that finds no
+    # primary takes the socket over (vtpu's rule).
+    for prim, stby, sock in pairs:
+        bound = fo[prim].bound()
+        fo.setdefault("bound_a", bound)
+        jdir_s = os.path.join(home, stby)
+        fo[stby] = Broker(f"p15-{stby}", sock, jdir_s, tmp, s13,
+                          os.path.join(tmp, f"lease-{prim}.json"),
+                          module="vtpu_torch.runtime.replication",
+                          args=["--journal-dir", jdir_s])
+        fo["procs"].append(fo[stby])
+    wait_for(lambda: repl_followers(fo["sock"]), "the standby to follow",
+             120)
+    open(s13["start"], "w").close()
+    fo["set_up_s"] = time.monotonic() - fo["t0"]
+
+
+def stale_primary(fo):
+    """15b's fence, on the pair without tenants: the primary is stopped
+    (SIGSTOP) with an admin connection open, its standby takes over once
+    the stream's heartbeats stop, and the primary, resumed (SIGCONT),
+    must refuse a journaled verb.  Returns (seconds from the stop to a
+    bound successor, the takeover's split, the stale primary's reply)."""
+    import signal
+
+    from vtpu_torch.runtime import protocol as P
+
+    f, fs, sock = fo["fprimary"], fo["fstandby"], fo["fsock"]
+    f.bound()
+    wait_for(lambda: repl_followers(sock), "the second standby to follow",
+             120)
+    old_epoch = f.stats()["journal"]["epoch"]
+    probe = socketmod.socket(socketmod.AF_UNIX, socketmod.SOCK_STREAM)
+    probe.settimeout(30.0)
+    probe.connect(sock + ".admin")
+    os.kill(f.p.pid, signal.SIGSTOP)
+    t_stop = time.monotonic()
+    wait_for(lambda: successor_stats(sock, old_epoch),
+             "the second standby's takeover", 120)
+    took_s = time.monotonic() - t_stop
+    os.kill(f.p.pid, signal.SIGCONT)
+    P.send_msg(probe, {"kind": "suspend", "tenant": "p15-stale-probe"})
+    stale = P.recv_msg(probe)
+    probe.close()
+    check(not stale.get("ok") and "fenced" in stale.get("error", ""),
+          f"the stale primary acked a journaled verb: {stale}")
+    f.stop()
+    split = fs.stats()["replication"]["takeover"]
+    fs.shutdown()
+    return took_s, split, stale
+
+
+def run_failover(torch, fo, respawn):
+    """15b (module docstring): the crash-resume cell of 13a with a hot
+    standby, from ``prepare_failover``'s state (a CPU rehearsal leaves
+    out the checks only a card meets)."""
+    from vtpu_torch.tools.vtpu_smi import request
+
+    s13, cfg, wbytes, tmp = fo["s13"], fo["cfg"], fo["wbytes"], fo["tmp"]
+    a, sb, sock, ref = fo["primary"], fo["standby"], fo["sock"], fo["ref"]
+    steps = s13["steps"]
+    t_run = time.monotonic()
+    # The stale primary's check runs while the tenant PUTs and compiles.
+    stop_s, stop_split, stale = stale_primary(fo)
+    tenant = fo["tenant"]
+    tenant_line(*tenant, "KILLPOINT")
+    t_kill = time.monotonic()
+    wait_for(lambda: (a.row("p13") or {}).get("cost_ema_us"),
+             "the tenant's cost EMA")
+    caught = wait_for(lambda: [f for f in repl_followers(sock)
+                               if f["lag_records"] == 0 and not f["dropped"]],
+                      "the standby to catch up", 60)
+    repl = request(sock + ".admin", {"kind": "repl_sync", "status": True}
+                   )["replication"]
+    old_epoch = a.stats()["journal"]["epoch"]
+    a.stop()  # SIGKILL, the third chain in flight
+    t_stop = time.monotonic()
+    st = wait_for(lambda: successor_stats(sock, old_epoch),
+                  "the standby's takeover", 120)
+    took_s = time.monotonic() - t_stop
+    rec = st["tenants"].get("p13")
+    check(rec is not None and rec["recovered"]
+          and rec["used_bytes"] == wbytes,
+          f"the successor's row before the tenant returned: {rec} (want "
+          f"{wbytes} B recovered)")
+    gen = st["replication"]["fence_generation"]
+    check(gen > repl["fence_generation"],
+          f"the killed primary's epoch is not fenced: generation {gen} "
+          f"after the takeover, {repl['fence_generation']} before")
+    open(fo["go"], "w").close()
+    res = tenant_result(*tenant)
+    got = torch.from_numpy(np.load(os.path.join(tmp, "p13_tokens.npy")))
+    same = int((got == ref).sum())
+    check(same >= TOKEN_AGREEMENT * ref.numel(),
+          f"tokens after step {steps} agree at {same} of {ref.numel()} "
+          f"positions")
+    check(res["resumes"] and all(r["resumed"] for r in res["resumes"]),
+          f"resumes {res['resumes']}")
+    check(not res["cuda_initialized"], "the tenant initialised CUDA")
+    wait_for(lambda: region_ledger(sock + ".shr") == 0 or None,
+             "the successor's ledger to read 0", 30)
+    st = sb.stats()
+    split = st["replication"]["takeover"]
+    jc = st["journal"]
+    sb.shutdown()
+    ran = steps - res["resumes"][-1]["at_step"]
+    l_s = sb.launches()
+    if fo["card"]:
+        check(l_s.get("sm90") == ran * cfg.n_layers and not l_s.get("wmma"),
+              f"the successor's K1 launches {l_s} != {ran} steps x "
+              f"{cfg.n_layers} sm90")
+    with open(sb.errpath) as f:
+        warm = re.findall(r"imported in ([0-9.]+) s; CUDA initialised: "
+                          r"(\w+)", f.read())
+    check(warm and warm[0][1] == "False",
+          f"the standby initialised CUDA before the takeover: {warm}")
+    ct, t_lost = res["chain_times"], res["resumes"][0]["t"]
+    last = max(t for _, t in ct if t <= t_lost)
+    first = min(t for _, t in ct if t > t_lost)
+    say(f"15b {s13['cfg']} (dim {cfg.dim}, depth {cfg.n_layers}), {steps} "
+        f"steps in chains of {P13_CHAIN}, killed after {s13['kill_at']}; "
+        f"journals and mirrors in {fo['where']}; weights {wbytes} B; drawing "
+        f"them, starting the primaries and the tenant and serving in process "
+        f"{fo['prep_s']:.1f} s, during 15a (the first primary bound within "
+        f"{fo['bound_a']:.2f} s of its start, its standby following and the "
+        f"tenant released {fo['set_up_s']:.1f} s into 15b's set-up); the "
+        f"standby warmed torch and the broker in {float(warm[0][0]):.2f} s "
+        f"without CUDA; the tenant's PUT {res['setup_s']['weights']:.2f} s, "
+        f"compile {res['setup_s']['compile']:.2f} s; stream at the kill: seq "
+        f"{repl['seq']}, follower lag {caught[0]['lag_records']} records "
+        f"{caught[0]['lag_bytes']} B (queue cap VTPU_REPL_BUFFER_MB "
+        f"{os.environ.get('VTPU_REPL_BUFFER_MB', 'default 64')}); streamed "
+        f"{split['stream_bytes']} B of records and {split['blob_bytes']} B "
+        f"of blobs")
+    say(f"15b takeover {took_s:.2f} s from kill -9 to a bound successor "
+        f"(confirm {split['confirm_s']:.3f} s, fence {split['fence_s']:.4f} "
+        f"s, CUDA claim and boot {split['claim_s']:.3f} s); restore "
+        f"{jc['restore_s_last']:.3f} s, program load {jc['load_s_last']:.3f} "
+        f"s, first chain {first - res['resumes'][-1]['t']:.3f} s after the "
+        f"resume; blackout {first - t_stop:.2f} s from the kill -9 to the "
+        f"first chain answered after ({first - last:.2f} s from the last "
+        f"answered before, the wait at the kill point in it); 13a's respawn "
+        f"after kill -9: bound "
+        f"{respawn['bound_s']:.2f} s + resume {respawn['resume_s']:.2f} s; "
+        f"fence generation {repl['fence_generation']} -> {gen}")
+    say(f"15b stale primary (the pair without tenants): SIGSTOP to a bound "
+        f"successor {stop_s:.2f} s (the stream's 2 s heartbeat timeout, "
+        f"confirm {stop_split['confirm_s']:.3f} s, fence "
+        f"{stop_split['fence_s']:.4f} s, claim and boot "
+        f"{stop_split['claim_s']:.3f} s); resumed, its SUSPEND answered "
+        f"{stale.get('code')}")
+    say(f"15b tokens after step {steps} equal at {same} of {ref.numel()}; "
+        f"successor's launches {json.dumps(l_s)} ({ran} steps); from the "
+        f"kill point to the end {time.monotonic() - t_kill:.1f} s; 15b took "
+        f"{time.monotonic() - t_run:.1f} s after 15a (its set-up "
+        f"{fo['set_up_s']:.1f} s ran while 15a's tenants warmed up)")
+    return l_s
+
+
+def phase_standby(torch, tmp, direct, respawn, s15=None):
+    """Phase 15: 15a, with 15b's set-up run while 15a's tenants warm up,
+    then 15b; K1's launches in 15a's broker and 15b's successor.
+    ``s15``: P15_CARD, or a rehearsal's settings as phase 13 takes them."""
+    import signal
+
+    s15 = dict(P15_CARD if s15 is None else s15)
+    fo = {"procs": []}
+
+    def meanwhile():
+        prepare_failover(torch, tmp, s15, fo)
+
+    try:
+        a = phase_slo(torch, tmp, s15, meanwhile)
+        b = run_failover(torch, fo, respawn)
+    finally:
+        tenant = fo.get("tenant")
+        if tenant is not None:
+            p, err = tenant
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+        for b_ in fo["procs"]:
+            if b_.p.poll() is None:
+                try:
+                    os.kill(b_.p.pid, signal.SIGCONT)
+                except OSError:
+                    pass
+            b_.stop()
+        if fo.get("home") not in (None, fo.get("tmp")):
+            import shutil
+            shutil.rmtree(fo["home"], ignore_errors=True)
+    return {r: a.get(r, 0) + b.get(r, 0) for r in set(a) | set(b)}
+
+
 def child_main(args):
     """``--child serve`` (phase 6), ``--child metered <go file>`` (phase
     7), ``--child granted <go file>`` (phase 8), ``--child train`` or
@@ -3948,8 +4660,10 @@ def child_main(args):
     file>`` or ``--child pyshim`` (phase 10), ``--child viewpod <dir>
     <name>`` or ``--child nvmlutil`` (phase 11), ``--child brokered <go
     file> <mode> <socket> <dir>`` (phase 12), ``--child p13 <go file>
-    <socket> crash|bench <settings>`` (phase 13): one tenant or probe;
-    prints its RESULT line."""
+    <socket> crash|bench <settings>`` (phase 13), ``--child p14 ...`` or
+    ``--child p14probe <op>`` (phase 14), ``--child p15 <go file> <socket>
+    <name> <neighbour>`` (phase 15): one tenant or probe; prints its
+    RESULT line."""
     import torch
 
     torch_maps = libcuda_maps()
@@ -3976,6 +4690,8 @@ def child_main(args):
             res = brokered_child(torch, torch_maps, *args[1:])
         elif args[0] == "p13":
             res = p13_child(torch, *args[1:4], json.loads(args[4]))
+        elif args[0] == "p15":
+            res = p15_child(torch, *args[1:5], json.loads(args[5]))
         elif args[0] == "p14":
             res = p14_child(torch, *args[1:5])
         elif args[0] == "p14probe":
@@ -4026,6 +4742,8 @@ def main():
             brokered = phase(12, phase_broker, torch, tmp)
             durable = phase(13, phase_durability, torch, tmp, direct)
             laned = phase(14, phase_fastlane, torch, tmp, direct)
+            standby = phase(15, phase_standby, torch, tmp, direct,
+                            durable["respawn"])
     except Failed as e:
         print(f"FAIL: {e}", file=sys.stderr)
         return 1
@@ -4036,6 +4754,7 @@ def main():
          "brokered_launches": brokered[route],
          "phase13_launches": durable[route],
          "phase14_launches": laned[route],
+         "phase15_launches": standby.get(route, 0),
          "shape": {"bh": 64, "s": SERVE_S, "d": 128, "causal": True},
          **timed[SERVE_S][route]}
         for route, (lib, _symbol) in ROUTES.items()]}))

@@ -645,7 +645,8 @@ def test_lane_bills_what_the_socket_bills(tmp_path):
                                        region=region)
     sched.state = types.SimpleNamespace(
         min_exec_cost_us=floor, journal=None,
-        flight=types.SimpleNamespace(enabled=False))
+        flight=types.SimpleNamespace(enabled=False),
+        slo=types.SimpleNamespace(enabled=False))
     sched.mu = threading.Condition()
     sched.inflight, sched.queued_est_us, sched._pool_us = {}, 0.0, 0.0
     t = types.SimpleNamespace(name="t", index=0, cost_ema={}, executions=0)
@@ -674,7 +675,8 @@ def test_lane_bills_what_the_socket_bills(tmp_path):
         def elapsed_time(self, other):
             return busy_want / 1e3
 
-    FL.meter_batch(hub, tl.chip, (lane, 1, est, {0: 1}, Ev(), Ev(), 0.0))
+    FL.meter_batch(hub, tl.chip, (lane, 1, est, {0: 1}, Ev(), Ev(), 0.0,
+                                  ()))
     want = FL.bill_us(busy_want, est, 1, floor) - est
     assert adj_lane == [int(want)]
     assert len(adj_sock) == 1 and abs(adj_sock[0] - want) < 500, adj_sock

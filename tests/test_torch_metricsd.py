@@ -301,10 +301,15 @@ def test_duty_reads_the_window(jregion_lib, tmp_path, monkeypatch, before):
 
 
 def test_region_backend_refuses_a_broker():
-    with pytest.raises(ValueError, match="item 6"):
-        tbackend.RegionBackend(quota=None, broker_socket="/run/broker.sock")
-    with pytest.raises(ValueError, match="item 6"):
-        tserver.backend_from_env({"VTPU_RUNTIME_SOCKET": "/run/b.sock"})
+    """A broker socket is taken now (6(d)(i)), from the argument or the
+    grant's runtime socket, with the pod's tenant name; a broker that
+    does not answer leaves the SLO view empty, as vtpu's does."""
+    b = tbackend.RegionBackend(quota=None, broker_socket="/run/broker.sock",
+                               tenant="t")
+    assert b.broker_socket == "/run/broker.sock" and b.slo_summary() is None
+    b = tserver.backend_from_env({"VTPU_RUNTIME_SOCKET": "/run/b.sock",
+                                  "VTPU_TENANT": "p"})
+    assert (b.broker_socket, b.tenant) == ("/run/b.sock", "p")
     assert isinstance(tserver.backend_from_env({"VTPU_METRICSD_FAKE": "1"}),
                       tbackend.FakeBackend)
 
@@ -355,10 +360,11 @@ def test_server_over_grpc_matches_vtpu():
 def test_selftest_and_cli_refusals(capsys):
     assert tserver.main(["--selftest"]) == 0
     assert "40 GiB total / 1 GiB used / 80%" in capsys.readouterr().out
+    # --broker is taken now (6(d)(i)); an unknown flag is still refused.
+    assert tserver.main(["--broker", "/run/broker.sock", "--selftest"]) == 0
     with pytest.raises(SystemExit) as e:
-        tserver.main(["--broker", "/run/broker.sock"])
+        tserver.main(["--cluster", "/run/broker.sock"])
     assert e.value.code == 2
-    assert "item 6" in capsys.readouterr().err
 
 
 RACE = """
@@ -376,8 +382,8 @@ RACE = """
 def test_maybe_start_in_container_port_race(tmp_path):
     """Three processes of one container start together: one binds the
     port and serves the grant, the others go on without a server; a
-    client then reads the winner.  A broker socket in the env refuses to
-    start and says so."""
+    client then reads the winner.  A broker socket in the env is taken
+    (6(d)(i)): the server starts with it."""
     port = free_port()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("VTPU_", "LD_", "PYTHON"))}
@@ -408,5 +414,5 @@ def test_maybe_start_in_container_port_race(tmp_path):
                                 VTPU_METRICSD_FAKE="0"),
                        capture_output=True, text=True, timeout=60)
     assert r.returncode == 0, r.stderr
-    assert json.loads(r.stdout)["won"] is False
-    assert "metricsd not started" in r.stderr and "item 6" in r.stderr
+    assert json.loads(r.stdout)["won"] is True
+    assert "metricsd not started" not in r.stderr

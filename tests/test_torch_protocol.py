@@ -7,6 +7,7 @@ ml_dtypes' on vtpu's: the bytes and the name are the same."""
 
 import socket
 import struct
+import threading
 
 import ml_dtypes
 import numpy as np
@@ -236,3 +237,47 @@ def test_reply_err_frame_equal():
             a.close()
             b.close()
     assert frames[0] == frames[1]
+
+
+def _wire(send):
+    """The bytes ``send(sock)`` puts on a socket pair (sent from a thread,
+    so a payload larger than the socket's buffer does not block)."""
+    a, b = socket.socketpair()
+    try:
+        def run():
+            send(a)
+            a.shutdown(socket.SHUT_WR)
+
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        chunks = []
+        while True:
+            c = b.recv(1 << 20)
+            if not c:
+                break
+            chunks.append(c)
+        th.join(timeout=10)
+        return b"".join(chunks)
+    finally:
+        a.close()
+        b.close()
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 65535, 65536, (1 << 20) + 3])
+def test_send_msg_tail_is_send_msg_on_the_wire(n):
+    """The copy-free send of a message with a large bin last puts the same
+    bytes on the wire as vtpu's ``send_msg``, which reads it back."""
+    data = np.random.default_rng(n).integers(0, 256, n, np.uint8).tobytes()
+    got = _wire(lambda s: TP.send_msg_tail(s, {"blob": "ab" * 32}, "data",
+                                           data))
+    assert got == _wire(lambda s: JP.send_msg(s, {"blob": "ab" * 32,
+                                                  "data": data}))
+    a, b = socket.socketpair()
+    try:
+        th = threading.Thread(target=a.sendall, args=(got,), daemon=True)
+        th.start()
+        assert JP.recv_msg(b) == {"blob": "ab" * 32, "data": data}
+        th.join(timeout=10)
+    finally:
+        a.close()
+        b.close()

@@ -689,7 +689,8 @@ def port(tmp_path):
     ("migrate", "6(d)"), ("repl_sync", "6(d)")])
 def test_deferred_verbs_refused_with_their_item(port, verb, item):
     """On the socket that serves the verb in vtpu: a typed refusal that
-    names the ROADMAP sub-item; the connection serves on."""
+    names the ROADMAP sub-item (6(d)(ii) for migration); the connection
+    serves on.  FASTBIND (6(c)) and REPL_SYNC (6(d)(i)) are served now."""
     on_tenant = verb in TP.TENANT_VERBS
     s = raw_conn(port if on_tenant else port + ".admin")
     try:
@@ -702,25 +703,55 @@ def test_deferred_verbs_refused_with_their_item(port, verb, item):
             # Ported with 6(c): a tenant without a lane gets vtpu's typed
             # refusal.
             assert resp["code"] == "FASTLANE_OFF"
+        elif verb == TP.REPL_SYNC:
+            # Ported with 6(d)(i): a broker without a journal has nothing
+            # to stream, vtpu's typed answer, and ends the would-be stream
+            # as vtpu does; the status probe answers on a new connection.
+            assert resp["code"] == "NO_JOURNAL"
+            s.close()
+            s = raw_conn(port + ".admin")
+            TP.send_msg(s, {"kind": verb, "status": True})
+            assert TP.recv_msg(s)["replication"]["role"] == "primary"
         else:
-            assert resp["code"] == "UNIMPLEMENTED" and item in resp["error"]
+            assert resp["code"] == "UNIMPLEMENTED" and \
+                f"item {item}(ii)" in resp["error"]
         TP.send_msg(s, {"kind": TP.STATS})
         assert TP.recv_msg(s)["ok"]
     finally:
         s.close()
 
 
-def test_trace_and_slo_answer_disabled(port):
-    """Bind-free on the tenant socket and on the admin socket."""
+def test_trace_and_slo_answer_disabled(port, tmp_path, monkeypatch):
+    """Bind-free on the tenant socket and on the admin socket: TRACE
+    answers disabled with tracing off; SLO answers enabled (the plane's
+    default) with no row for an unbound probe that names no tenant, and
+    with VTPU_SLO=0 answers disabled, each as vtpu's plane does."""
+    from vtpu.runtime import slo as jslo
     for path in (port, port + ".admin"):
         s = raw_conn(path)
         try:
-            for verb in (TP.TRACE, TP.SLO):
-                TP.send_msg(s, {"kind": verb})
-                resp = TP.recv_msg(s)
-                assert resp == {"ok": True, "enabled": False, "tenants": {}}
+            TP.send_msg(s, {"kind": TP.TRACE})
+            assert TP.recv_msg(s) == {"ok": True, "enabled": False,
+                                      "tenants": {}}
+            TP.send_msg(s, {"kind": TP.SLO})
+            resp = TP.recv_msg(s)
+            assert resp["ok"] and resp["enabled"] and resp["tenants"] == {}
+            if path.endswith(".admin"):
+                assert resp["matrix"] == {} and \
+                    resp["fairness"]["tenants"] == {}
         finally:
             s.close()
+    monkeypatch.setenv("VTPU_SLO", "0")
+    srv = tserver.make_server(str(tmp_path / "off.sock"), 0, 0,
+                              device="cpu")
+    try:
+        for admin in (False, True):
+            want = jslo.SloPlane(enabled=False).report(admin=admin)
+            want["ok"] = True
+            assert srv.state.slo_report(admin=admin) == want
+            assert want["enabled"] is False and want["tenants"] == {}
+    finally:
+        srv.server_close()
 
 
 @pytest.mark.parametrize("key,value,item", [
@@ -728,25 +759,23 @@ def test_trace_and_slo_answer_disabled(port):
     ("VTPU_SLO", "1", "6(d)")])
 def test_deferred_env_refused(tmp_path, monkeypatch, key, value, item):
     monkeypatch.setenv(key, value)
-    if key == "VTPU_FASTLANE":
-        # Ported with 6(c): the broker serves lanes.
-        srv = tserver.make_server(str(tmp_path / "x.sock"), 0, 0,
-                                  device="cpu")
-        try:
+    # Both are ported now (6(c), 6(d)(i)): the broker serves lanes and
+    # runs the SLO plane.
+    srv = tserver.make_server(str(tmp_path / "x.sock"), 0, 0, device="cpu")
+    try:
+        if key == "VTPU_FASTLANE":
             assert srv.state.fastlane.serve
-        finally:
-            srv.server_close()
-        return
-    with pytest.raises(RuntimeError, match=item.replace("(", r"\(")
-                       .replace(")", r"\)")):
-        tserver.make_server(str(tmp_path / "x.sock"), 0, 0, device="cpu")
+        else:
+            assert srv.state.slo.enabled
+    finally:
+        srv.server_close()
 
 
 def test_cluster_flag_refused(capsys):
     with pytest.raises(SystemExit):
         tserver.main(["--socket", "/nonexistent/x.sock", "--device", "cpu",
                       "--cluster", "/x"])
-    assert "6(d)" in capsys.readouterr().err
+    assert "6(d)(ii)" in capsys.readouterr().err
 
 
 def test_defaults_need_a_card(tmp_path):
@@ -849,7 +878,8 @@ def _meter(batch_spec, prev_obs_ago, latency_us=1000.0):
                                    "region": region})()
     sched.state = type("State", (), {
         "min_exec_cost_us": 0, "journal": None,
-        "flight": ttrace.FlightRecorder(enabled=False)})()
+        "flight": ttrace.FlightRecorder(enabled=False),
+        "slo": type("Slo", (), {"enabled": False})()})()
     sched.mu = threading.Condition()
     sched.inflight, sched.queued_est_us, sched._pool_us = {}, 0.0, 0.0
     tenant = type("T", (), {"name": "t", "index": 0, "cost_ema": {},

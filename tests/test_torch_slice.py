@@ -145,6 +145,8 @@ def test_import_hygiene():
                     parts = parts[:-1]
                 mods.append(".".join(["vtpu_torch"] + parts))
     boot = ["vtpu_torch.shim.sitecustomize", "vtpu_torch.shim.vtpu_smi_lite"]
+    assert {"vtpu_torch.runtime.slo", "vtpu_torch.runtime.replication"} \
+        <= set(mods)
     code = f"""
         import importlib, sys
         sys.path.insert(0, {REPO!r})

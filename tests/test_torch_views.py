@@ -124,13 +124,15 @@ def test_vtpu_smi_refuses_unported_commands(cmd, item, capsys):
 
 @pytest.mark.parametrize("args", [
     ["--broker", "/run/vtpu.sock", "--migrate", "tenant-a"],
-    ["--migrate", "tenant-a", "--device", "1"], ["--repl-status"],
+    ["--migrate", "tenant-a", "--device", "1"],
+    ["--broker", "/run/vtpu.sock", "--repl-status", "--device", "1"],
     ["--migrate-to", "/run/other.sock", "--chips", "0"]])
 def test_vtpu_smi_refuses_broker_flags(args, capsys):
-    """The admin flags of migration and replication wait for ROADMAP
-    Queue 1 item 6(d); the 6(b) ones work (tests/test_torch_chaos.py)."""
+    """The admin flags of migration wait for ROADMAP Queue 1 item
+    6(d)(ii), beside a ported flag too (--repl-status, 6(d)(i); the 6(b)
+    ones: tests/test_torch_chaos.py)."""
     assert tsmi.main(args) == 2
-    assert "item 6(d)" in capsys.readouterr().err
+    assert "item 6(d)(ii)" in capsys.readouterr().err
 
 
 def test_vtpu_smi_metricsd_matches_vtpu(capsys):
@@ -302,9 +304,11 @@ def test_metrics_server_over_http(scan):
     assert set(doc) == {"regions", "metricsd"}
 
 
-@pytest.mark.parametrize("args", [["--broker", "/run/vtpu.sock"],
+@pytest.mark.parametrize("args", [["--broker", "/run/vtpu.sock", "--cluster",
+                                   "/run/cluster.sock"],
                                   ["--cluster", "/run/cluster.sock"]])
 def test_metrics_server_refuses_broker_flags(args, capsys):
+    """--cluster waits for 6(d)(ii), beside --broker (6(d)(i)) too."""
     with pytest.raises(SystemExit) as e:
         tms.main(args)
     assert e.value.code == 2
